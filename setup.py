@@ -8,6 +8,10 @@ setup(
         "TPU-native distributed certifiably-correct pose-graph optimization "
         "(JAX/XLA/Pallas re-design of mit-acl/dpgo)"
     ),
-    packages=find_packages(include=["dpgo_tpu", "dpgo_tpu.*"]),
+    packages=find_packages(
+        include=["dpgo_tpu", "dpgo_tpu.*", "dpgo_tpu_torch", "dpgo_tpu_torch.*"]
+    ),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"dpgo_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
 )
