@@ -7,23 +7,33 @@ Phases, one line each, in order; any failure exits non-zero before the last
 line:
   1. device: requires CUDA; prints the card and nvidia-smi's name and power
      limit, and turns TF32 off.
-  2. build: compiles the CUDA kernels from dpgo_tpu_torch/csrc with nvcc.
-  3. kernel: the CSR segment-sum kernel against its plain version (index_add_)
-     at the shapes of tests/test_pallas_segsum.py, a hotspot/empty-rows case
-     and the slice's own plans (n = 100,000 rows, m = 92,595 edges, w = 15);
-     two runs must give identical bits. Times both at the slice's shape.
+  2. build: compiles the CUDA kernels from dpgo_tpu_torch/csrc with nvcc and
+     prints ptxas's registers and spills per kernel.
+  3. kernel: each kernel against its plain version, two runs with identical
+     bits required:
+     - the CSR segment sum against index_add_ at the shapes of
+       tests/test_pallas_segsum.py, a hotspot/empty-rows case and the
+       slice's own plans (n = 100,000 rows, m = 92,595 edges, w = 15);
+     - the fused edge matvec against edge_matvec_reference at w = 15, 20 and
+       36, a row with 1,000 edges among empty rows, and the slice's plans;
+     then, at the slice's shape, each kernel's device time per call in turns
+     with its plain version, the unfused sequence the fused kernel replaces,
+     torch.segment_reduce and index_add_: cold, rotating over copies of the
+     inputs so that each call reads them from HBM (the kernels line's
+     numbers, as the byte bound assumes), and warm, in L2.
   4. slice: the centralized lifted solve on synthesize_city2d(100000, seed=0),
      d = 2, r = 5 — chordal init (float32 CG, tol 1e-6), lift, block-Jacobi,
      CSR plans, RTR with float32 tCG and float64 control to gradnorm < 1e-2 —
      once to warm up and three times timed. The last run must launch the
-     kernel at least twice per tCG iteration and land on the JAX package's
-     cost within 1e-6 relative; a small graph must give the same cost on the
-     card as on the CPU.
+     fused kernel at least once per tCG iteration and land on the JAX
+     package's cost within 1e-6 relative; a small graph must give the same
+     cost on the card as on the CPU.
 Then a JSON line with the kernels' numbers and, last, the JSON result line.
 
 Imports nothing of JAX or dpgo_tpu.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,7 +43,7 @@ import numpy as np
 import torch
 
 from dpgo_tpu_torch import datasets, quadratic
-from dpgo_tpu_torch.ops import _build, lifted, segsum
+from dpgo_tpu_torch.ops import _build, edge_matvec, lifted, segsum
 from dpgo_tpu_torch.solvers import chordal, rtr
 
 # 2·f_opt of the slice from the JAX package on the CPU (x64), same graph and
@@ -53,6 +63,9 @@ EXPECTED_2F = 3232.3695392369
 COST_RTOL = 1e-6
 SEGSUM_ATOL = 5e-5  # tests/test_pallas_segsum.py, scaled by row magnitude
 NUM_POSES, D, R = 100_000, 2, 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and dense fp32 peak
+FP32_FLOP_PER_S = 67e12
+COLD_COPIES = 10  # input copies in rotation, > 250 MB against the 50 MB L2
 SOLVE = dict(gradnorm_tol=1e-2, initial_radius=100.0, max_iterations=100,
              max_inner=200, inner_dtype=torch.float32)
 
@@ -91,10 +104,13 @@ def phase_build():
     so = _build.build()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.3f} s -> {so}", flush=True)
+    for name, regs, st, ld in _build.ptxas_report():
+        print(f"ptxas: {name} registers={regs} spill_stores={st} "
+              f"spill_loads={ld}", flush=True)
 
 
-def _check_kernel(C, plan):
-    """Kernel vs plain on one input; returns the max abs error."""
+def check_segsum(C, plan):
+    """Segment-sum kernel vs plain on one input; returns the max abs error."""
     out = segsum.segment_sum_csr(C, plan)
     again = segsum.segment_sum_csr(C, plan)
     ref = segsum.segment_sum_reference(C, plan)
@@ -109,50 +125,214 @@ def _check_kernel(C, plan):
     return float(err.max()) if err.numel() else 0.0
 
 
-def _median_ms(fn, reps=50, samples=21):
-    """Median over samples of the mean per-call time of `reps` calls,
-    measured with CUDA events after a warm-up."""
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
+def check_fused(csr, V, out0):
+    """Fused edge-matvec kernel vs edge_matvec_reference on one input, within
+    SEGSUM_ATOL scaled by the row magnitude (|out0| + the plain edge term on
+    |V| and |E|); returns the max abs error."""
+    out = edge_matvec.edge_matvec(out0.clone(), V, csr)
+    again = edge_matvec.edge_matvec(out0.clone(), V, csr)
+    ref = edge_matvec.edge_matvec_reference(out0.clone(), V, csr)
+    abs_csr = dataclasses.replace(csr, E_by_j=csr.E_by_j.abs(),
+                                  E_by_i=csr.E_by_i.abs())
+    mag = out0.abs() + edge_matvec.edge_matvec_reference(
+        torch.zeros_like(out0), V.abs(), abs_csr).abs()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail("edge-matvec kernel: two runs differ")
+    err = (out - ref).abs()
+    if not bool(torch.all(err <= SEGSUM_ATOL * torch.clamp(mag, min=1.0))):
+        fail(f"edge-matvec kernel disagrees with its plain version: max err "
+             f"{float(err.max())}")
+    return float(err.max())
+
+
+def random_csr(rng, n, m, dh, dev, hot=None):
+    """Random edges i -> j with float32 (dh, dh) blocks as CSR plans; with
+    `hot`, every edge points into row `hot` from the first tenth of the
+    rows, so one row holds all ->j edges and most rows are empty."""
+    if hot is None:
+        i, j = rng.integers(0, n, m), rng.integers(0, n, m)
+    else:
+        i, j = rng.integers(0, max(1, n // 10), m), np.full(m, hot)
+    E = torch.as_tensor(rng.standard_normal((m, dh, dh)), dtype=torch.float32,
+                        device=dev)
+    return quadratic.make_csr_plans(torch.as_tensor(i, device=dev),
+                                    torch.as_tensor(j, device=dev), E, n)
+
+
+def randn(rng, shape, dev):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                           device=dev)
+
+
+def device_ms(fns, reps=20, samples=15):
+    """Device time per call of each function in `fns` (name -> list of
+    callables, called in rotation), sampled in turns (forward, then
+    backward order): the median over `samples` of the CUDA-event time of
+    `reps` back-to-back calls. Before each sample a sleep kernel holds the
+    stream while the host enqueues the calls, so the host's launch cost
+    stays out of the time.
+
+    With one callable a function's inputs stay in the 50 MB L2 from call to
+    call (warm). With COLD_COPIES callables, each on its own copy of the
+    inputs, the other copies' traffic evicts a copy from L2 before it comes
+    round again, so every call reads its inputs from HBM, as bound_ms
+    assumes (cold)."""
+    def enqueue(calls):
+        for i in range(reps):
+            calls[i % len(calls)]()
+
+    for calls in fns.values():
+        for fn in calls:
             fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for calls in fns.values():
+        enqueue(calls)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10**6)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 10**6 / start.elapsed_time(end)
+    sleep = int(cycles_per_ms * (2e3 * host_s + 1.0))
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for s in range(samples):
+        for k in (names if s % 2 == 0 else names[::-1]):
+            torch.cuda._sleep(sleep)
+            start.record()
+            enqueue(fns[k])
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / reps)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def cloned(obj):
+    """A copy of a tensor, or of a dataclass with every tensor in it (nested
+    dataclasses too) cloned."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: cloned(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def bound_ms(nbytes, flops):
+    """Least time on the card: bytes over HBM rate vs fp32 operations over
+    peak; returns (ms, "bytes" or "operations")."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (b * 1e3, "bytes") if b >= f else (f * 1e3, "operations")
+
+
+def segsum_bound(m, n, w):
+    """Contributions and row pointers read once, out written once."""
+    return bound_ms(4 * (m * w + n + 1 + n * w), m * w)
+
+
+def fused_bound(m, n, w, dh):
+    """V, both E copies, the int64 indices and both row_ptr read once, out
+    read and written once; dh FMAs per output element, edge and direction."""
+    nbytes = 4 * n * w + 2 * 4 * m * dh * dh + 2 * 8 * m + 2 * 4 * (n + 1) \
+        + 2 * 4 * n * w
+    return bound_ms(nbytes, 2 * m * w * 2 * dh)
+
+
+def unfused_sequence(outf, Vf, csr):
+    """What q_matvec's float32 CSR branch launched before the fused kernel:
+    two row gathers, two batched products, two segment-sum kernels and two
+    subtractions."""
+    m, dh = csr.E_by_j.shape[0], csr.E_by_j.shape[-1]
+    r = Vf.shape[1] // dh
+    ci = (Vf[csr.src_by_j].reshape(m, r, dh) @ csr.E_by_j).reshape(m, r * dh)
+    cj = (Vf[csr.dst_by_i].reshape(m, r, dh)
+          @ csr.E_by_i.transpose(-1, -2)).reshape(m, r * dh)
+    outf = outf - segsum.segment_sum_csr(ci, csr.plan_j)
+    return outf - segsum.segment_sum_csr(cj, csr.plan_i)
 
 
 def phase_kernel(dev, csr):
+    """csr: the slice's float32 CSR plans."""
     rng = np.random.default_rng(0)
     cases = [(1000, 2600, 20), (517, 1399, 9), (100, 5, 12), (4096, 4096, 20),
              (37, 200, 4)]
     for n, m, w in cases:
         dest = np.sort(rng.integers(0, n, m))
-        C = torch.as_tensor(rng.standard_normal((m, w)), dtype=torch.float32,
-                            device=dev)
-        _check_kernel(C, segsum.make_segsum_plan(dest, n, device=dev))
-    C = torch.as_tensor(rng.standard_normal((1000, 8)), dtype=torch.float32,
-                        device=dev)
-    _check_kernel(C, segsum.make_segsum_plan(np.full(1000, 123), 500,
-                                             device=dev))
+        check_segsum(randn(rng, (m, w), dev),
+                     segsum.make_segsum_plan(dest, n, device=dev))
+    check_segsum(randn(rng, (1000, 8), dev),
+                 segsum.make_segsum_plan(np.full(1000, 123), 500, device=dev))
     # the slice's shape and plans
-    m = csr.plan_j.m
-    w = R * (D + 1)
-    C = torch.as_tensor(rng.standard_normal((m, w)), dtype=torch.float32,
-                        device=dev)
-    err = max(_check_kernel(C, csr.plan_j), _check_kernel(C, csr.plan_i))
-    ms = _median_ms(lambda: segsum.segment_sum_csr(C, csr.plan_j))
-    plain_ms = _median_ms(lambda: segsum.segment_sum_reference(C, csr.plan_j))
-    print(f"kernel: ok at {len(cases) + 1} test shapes and the slice's "
-          f"(n={csr.plan_j.n}, m={m}, w={w}); max_abs_err={err:.3e}; "
-          f"segsum {ms * 1e3:.2f} us vs index_add_ {plain_ms * 1e3:.2f} us "
-          f"(median of CUDA-event means)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    n, m, w, dh = csr.plan_j.n, csr.plan_j.m, R * (D + 1), D + 1
+    C = randn(rng, (m, w), dev)
+    seg_err = max(check_segsum(C, csr.plan_j), check_segsum(C, csr.plan_i))
+    lib = torch.segment_reduce(C, "sum", offsets=csr.plan_j.row_ptr, axis=0)
+    lib_err = float((lib - segsum.segment_sum_reference(C, csr.plan_j))
+                    .abs().max())
+
+    fused_cases = [(1000, 2600, 5, 3, None), (517, 1399, 5, 4, None),
+                   (300, 900, 12, 3, None), (500, 1000, 5, 3, 123),
+                   (100, 5, 5, 3, None)]
+    fused_err = 0.0
+    for fn, fm, fr, fdh, hot in fused_cases:
+        c = random_csr(rng, fn, fm, fdh, dev, hot=hot)
+        fused_err = max(fused_err, check_fused(
+            c, randn(rng, (fn, fr * fdh), dev), randn(rng, (fn, fr * fdh), dev)))
+    V, out0 = randn(rng, (n, w), dev), randn(rng, (n, w), dev)
+    fused_err = max(fused_err, check_fused(csr, V, out0))
+    print(f"kernel: ok; segsum at {len(cases) + 2} shapes, max_abs_err="
+          f"{seg_err:.3e} (segment_reduce vs index_add_ {lib_err:.3e}); "
+          f"edge_matvec at {len(fused_cases) + 1} shapes, max_abs_err="
+          f"{fused_err:.3e}; identical bits on rerun", flush=True)
+
+    def timed(out, V, csr, C):
+        return {
+            "edge_matvec": lambda: edge_matvec.edge_matvec(out, V, csr),
+            "edge_matvec_reference":
+                lambda: edge_matvec.edge_matvec_reference(out, V, csr),
+            "unfused_sequence": lambda: unfused_sequence(out, V, csr),
+            "segment_sum_csr": lambda: segsum.segment_sum_csr(C, csr.plan_j),
+            "segment_reduce": lambda: torch.segment_reduce(
+                C, "sum", offsets=csr.plan_j.row_ptr, axis=0),
+            "index_add_": lambda: segsum.segment_sum_reference(C, csr.plan_j),
+        }
+
+    out = out0.clone()
+    sets = [timed(out, V, csr, C)] + [
+        timed(*map(cloned, (out, V, csr, C))) for _ in range(COLD_COPIES - 1)]
+    ms = device_ms({k: [t[k] for t in sets] for k in sets[0]})
+    warm = device_ms({k: [sets[0][k]] for k in sets[0]})
+    del sets
+    sb, sb_by = segsum_bound(m, n, w)
+    fb, fb_by = fused_bound(m, n, w, dh)
+    for label, t in (("cold L2", ms), ("warm L2", warm)):
+        print(f"kernel: device us/call at n={n} m={m} w={w}, {label} (median "
+              f"of CUDA-event means, in turns): edge_matvec "
+              f"{t['edge_matvec'] * 1e3:.2f} (bound {fb * 1e3:.2f}, by "
+              f"{fb_by}), its plain version "
+              f"{t['edge_matvec_reference'] * 1e3:.2f}, the unfused sequence "
+              f"{t['unfused_sequence'] * 1e3:.2f}; segment_sum_csr "
+              f"{t['segment_sum_csr'] * 1e3:.2f} (bound {sb * 1e3:.2f}, by "
+              f"{sb_by}), segment_reduce {t['segment_reduce'] * 1e3:.2f}, "
+              f"index_add_ {t['index_add_'] * 1e3:.2f}", flush=True)
+    return {
+        "segment_sum_csr": {
+            "max_abs_err": seg_err, "ms": ms["segment_sum_csr"],
+            "plain_ms": ms["index_add_"], "bound_ms": sb, "bound_by": sb_by,
+            "library_ms": ms["segment_reduce"],
+            "warm_ms": warm["segment_sum_csr"]},
+        "edge_matvec": {
+            "max_abs_err": fused_err, "ms": ms["edge_matvec"],
+            "plain_ms": ms["edge_matvec_reference"], "bound_ms": fb,
+            "bound_by": fb_by, "library_ms": None,
+            "replaced_ms": ms["unfused_sequence"],
+            "warm_ms": warm["edge_matvec"]},
+    }
 
 
 def run_slice(edges, n, dev, min_edges=4096):
@@ -195,9 +375,10 @@ def phase_slice(dev):
         fail("no CSR plans attached at the slice's size")
     runs = []
     for _ in range(3):
-        segsum.LAUNCHES = 0
+        edge_matvec.LAUNCHES = segsum.LAUNCHES = 0
         X, stats, qd, t = run_slice(edges, n, dev)
-        launches = segsum.LAUNCHES
+        launches = {"edge_matvec": edge_matvec.LAUNCHES,
+                    "segment_sum_csr": segsum.LAUNCHES}
         runs.append(t)
     tcg = int(stats.tcg_iters)
     gn = float(stats.gnorm_opt)
@@ -208,13 +389,14 @@ def phase_slice(dev):
           f"(problem {med['problem_s']:.3f}, chordal {med['chordal_s']:.3f}, "
           f"build+csr {med['build_s']:.3f}, rtr_solve {med['solve_s']:.3f}) | "
           f"rtr_iters={stats.iterations} tcg_iters={tcg} gradnorm={gn:.6e} "
-          f"2f={f2:.10f} segsum_launches={launches}", flush=True)
+          f"2f={f2:.10f} launches={launches}", flush=True)
     if tuple(X.shape) != (n, R, D + 1) or not bool(torch.isfinite(X).all()):
         fail("solution is not a finite (n, r, d+1) tensor")
     if not gn < SOLVE["gradnorm_tol"]:
         fail(f"gradnorm {gn} not below {SOLVE['gradnorm_tol']}")
-    if launches < max(1, 2 * tcg):
-        fail(f"{launches} kernel launches for {tcg} tCG iterations")
+    if launches["edge_matvec"] < max(1, tcg):
+        fail(f"{launches['edge_matvec']} edge-matvec launches for {tcg} tCG "
+             f"iterations")
     rel = abs(f2 - EXPECTED_2F) / EXPECTED_2F
     if not rel <= COST_RTOL:
         fail(f"2f={f2!r} vs expected {EXPECTED_2F!r}: rel {rel:.3e}")
@@ -227,31 +409,38 @@ def phase_slice(dev):
         fail(f"city2d(600): card 2f={a!r} vs CPU 2f={b!r}")
     print(f"slice: ok, rel cost err {rel:.3e} vs JAX CPU; city2d(600) card "
           f"2f={a:.10f} CPU 2f={b:.10f}", flush=True)
-    return launches, qd.csr
+    return launches
 
 
-def main():
-    dev, smi_line = phase_device()
-    phase_build()
-    # the slice's CSR plans, for the kernel phase at the real shape
+def slice_plans(dev):
+    """The slice's float32 CSR plans, as the tCG's matvecs see them."""
     edges, n, _ = datasets.synthesize_city2d(NUM_POSES, seed=0)
     problem = quadratic.from_private_measurements(edges, n=n, d=D, device=dev)
     qd = quadratic.attach_csr_plans(quadratic.build_q_data(problem, R))
     if qd.csr is None:
         fail("no CSR plans attached at the slice's size")
-    k = phase_kernel(dev, qd.csr)
-    launches, _ = phase_slice(dev)
+    return qd.to(torch.float32).csr
+
+
+def main():
+    dev, smi_line = phase_device()
+    phase_build()
+    k = phase_kernel(dev, slice_plans(dev))
+    launches = phase_slice(dev)
     print(smi_line, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "segment_sum_csr",
-        "route": "cuda",
-        "source": "dpgo_tpu_torch/csrc/segsum.cu",
-        "replaces": "dpgo_tpu/ops/pallas_segsum.py:213",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-    }]}), flush=True)
+    sources = {
+        "segment_sum_csr": ("dpgo_tpu_torch/csrc/segsum.cu", {}),
+        "edge_matvec": ("dpgo_tpu_torch/csrc/edge_matvec.cu",
+                        {"replaces_also": "dpgo_tpu/quadratic.py:597-612"}),
+    }
+    kernels = []
+    for name, (source, extra) in sources.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "dpgo_tpu/ops/pallas_segsum.py:213",
+            "launches": launches[name], **k[name],
+            "bound_us": k[name]["bound_ms"] * 1e3, **extra})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 # Launches of the CUDA kernel in this process; chip_smoke.py reads it to show
-# that the solve went through the kernel.
+# which kernels a run went through.
 LAUNCHES = 0
 
 

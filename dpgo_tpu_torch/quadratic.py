@@ -12,8 +12,9 @@ The Hessian-vector product (V Q), the innermost op of every tCG iteration,
 is one batched (r,dh)x(dh,dh) product against the diagonal blocks, plus
 shifted batched products for the edges on planned band lanes, plus a
 gather / per-edge product / scatter-add for the remaining edges. With CSR
-plans attached and float32 input, the scatter-adds run through the segment
-sum of ops/segsum.py (the hand-written CUDA kernel on the card).
+plans attached and float32 input, that gather-path term is one fused
+gather-multiply-reduce over the destination-sorted edges, ops/edge_matvec.py
+(the hand-written CUDA kernel on the card).
 
 Only the block-Jacobi preconditioner is ported so far: the tridiagonal and
 banded factors wait for the port of ops/block_tridiag.py, and the residual
@@ -28,8 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dpgo_tpu_torch.ops import lifted
-from dpgo_tpu_torch.ops import segsum
+from dpgo_tpu_torch.ops import edge_matvec, lifted, segsum
 from dpgo_tpu_torch.types import PRECONDITIONER_SHIFT, PRIOR_KAPPA, PRIOR_TAU
 
 
@@ -92,9 +92,9 @@ class LocalProblem:
 
 @dataclasses.dataclass(frozen=True)
 class CSRPlans:
-    """Sorted-edge plans for the CSR segment sum in q_matvec: the gather-path
+    """Sorted-edge plans for the fused edge term of q_matvec: the gather-path
     edge data pre-permuted into destination-sorted order for each scatter
-    direction."""
+    direction (make_csr_plans)."""
 
     src_by_j: torch.Tensor  # (mp,) gather index for the ->j contribution
     E_by_j: torch.Tensor  # (mp, dh, dh) edge blocks in j-sorted order
@@ -301,7 +301,8 @@ def q_matvec(qd: QuadraticData, V: torch.Tensor) -> torch.Tensor:
     """(V Q) in block form: out_j = sum_i V_i Q_ij. V: (n, r, dh).
 
     Gathers and scatters run on flattened (n, r*dh) rows. With CSR plans
-    attached and float32 V, the two scatter-adds are CSR segment sums."""
+    attached and float32 V, the whole gather-path edge term is one fused
+    gather-multiply-reduce (ops/edge_matvec.py)."""
     out = V @ qd.diag
     n, r, dh = V.shape
     if qd.band_E is not None:
@@ -334,15 +335,10 @@ def q_matvec(qd: QuadraticData, V: torch.Tensor) -> torch.Tensor:
         return out
     Vf = V.reshape(n, r * dh)
     if qd.csr is not None and V.dtype == torch.float32:
-        csr = qd.csr
-        ci = (Vf[csr.src_by_j].reshape(m, r, dh) @ csr.E_by_j).reshape(m, r * dh)
-        cj = (
-            Vf[csr.dst_by_i].reshape(m, r, dh) @ csr.E_by_i.transpose(-1, -2)
-        ).reshape(m, r * dh)
+        # `out` is fresh here, so the fused edge op may update it in place
         outf = out.reshape(n, r * dh)
-        outf = outf - segsum.segment_sum_csr(ci, csr.plan_j)
-        outf = outf - segsum.segment_sum_csr(cj, csr.plan_i)
-        return outf.reshape(n, r, dh)
+        edge_matvec.edge_matvec(outf, Vf.contiguous(), qd.csr)
+        return out
     Vi = Vf[qd.off_i].reshape(m, r, dh)
     Vj = Vf[qd.off_j].reshape(m, r, dh)
     ci = (Vi @ qd.off_E).reshape(m, r * dh)
@@ -353,31 +349,38 @@ def q_matvec(qd: QuadraticData, V: torch.Tensor) -> torch.Tensor:
     return outf.reshape(n, r, dh)
 
 
-def attach_csr_plans(qd: QuadraticData, min_edges: int = 4096) -> QuadraticData:
-    """Host side: sort the gather-path edges by each scatter destination and
-    attach CSR segment-sum plans, used by q_matvec on float32 input.
-
-    A no-op below `min_edges` gather-path edges (the threshold of the JAX
-    package). Unlike the JAX package this attaches on every device: on the
-    CPU the plans route through the plain segment sum, so the CPU tests run
-    the same code path as the card. `min_edges` lets small tests force it."""
-    if qd.off_E.shape[0] < min_edges:
-        return qd
-    dev = qd.off_E.device
-    i_np = qd.off_i.cpu().numpy()
-    j_np = qd.off_j.cpu().numpy()
+def make_csr_plans(off_i, off_j, off_E, n: int) -> CSRPlans:
+    """Host side: sort the edges (off_i -> off_j, blocks off_E) by each
+    scatter destination (stable, so ties keep edge order) and build the CSR
+    plans on off_E's device."""
+    dev = off_E.device
+    i_np = off_i.cpu().numpy()
+    j_np = off_j.cpu().numpy()
     perm_j = np.argsort(j_np, kind="stable")
     perm_i = np.argsort(i_np, kind="stable")
     pj = torch.as_tensor(perm_j, device=dev)
     pi = torch.as_tensor(perm_i, device=dev)
-    csr = CSRPlans(
-        src_by_j=qd.off_i[pj],
-        E_by_j=qd.off_E[pj],
-        dst_by_i=qd.off_j[pi],
-        E_by_i=qd.off_E[pi],
-        plan_j=segsum.make_segsum_plan(j_np[perm_j], qd.n, device=dev),
-        plan_i=segsum.make_segsum_plan(i_np[perm_i], qd.n, device=dev),
+    return CSRPlans(
+        src_by_j=off_i[pj],
+        E_by_j=off_E[pj],
+        dst_by_i=off_j[pi],
+        E_by_i=off_E[pi],
+        plan_j=segsum.make_segsum_plan(j_np[perm_j], n, device=dev),
+        plan_i=segsum.make_segsum_plan(i_np[perm_i], n, device=dev),
     )
+
+
+def attach_csr_plans(qd: QuadraticData, min_edges: int = 4096) -> QuadraticData:
+    """Host side: attach the CSR plans of the gather-path edges
+    (make_csr_plans), used by q_matvec on float32 input.
+
+    A no-op below `min_edges` gather-path edges (the threshold of the JAX
+    package). Unlike the JAX package this attaches on every device: on the
+    CPU the plans route through the plain version, so the CPU tests run the
+    same code path as the card. `min_edges` lets small tests force it."""
+    if qd.off_E.shape[0] < min_edges:
+        return qd
+    csr = make_csr_plans(qd.off_i, qd.off_j, qd.off_E, qd.n)
     return dataclasses.replace(qd, csr=csr)
 
 

@@ -38,11 +38,20 @@ def solve_pgo(
     measurements: Sequence[RelativeSEMeasurement],
     params: ROptParameters = ROptParameters(),
     T0: Optional[np.ndarray] = None,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, rtr_mod.RTRStats]:
     """Centralized PGO at rank r = d: chordal init (unless T0 is given) + RTR
     (reference: DPGO_solver.cpp:305-333). Returns (T: (n, d, d+1), stats),
-    float64 on `device`."""
+    float64 on `device`.
+
+    device: None (the default) solves on the CUDA card and raises where
+    there is none; pass device="cpu" to solve on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "solve_pgo runs on the CUDA card by default and there is "
+                "none; pass device='cpu' to solve on the CPU")
+        device = torch.device("cuda")
     d, n = num_poses_and_dim(measurements)
     if T0 is None:
         T = chordal_initialization(measurements, device=device)

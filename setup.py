@@ -12,6 +12,6 @@ setup(
         include=["dpgo_tpu", "dpgo_tpu.*", "dpgo_tpu_torch", "dpgo_tpu_torch.*"]
     ),
     # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"dpgo_tpu_torch": ["csrc/*.cu"]},
+    package_data={"dpgo_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
 )

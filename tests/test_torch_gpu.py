@@ -1,4 +1,5 @@
-"""The CUDA segment-sum kernel on the card, against its plain version.
+"""The CUDA kernels on the card (the segment sum and the fused edge
+matvec), against their plain versions.
 
 Every test here needs a CUDA device and skips without one. The module
 imports neither jax nor dpgo_tpu, so on a machine with a card but no JAX it
@@ -7,14 +8,15 @@ runs without the suite's conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from dpgo_tpu_torch import datasets, quadratic
-from dpgo_tpu_torch.ops import segsum
+from dpgo_tpu_torch.ops import edge_matvec, lifted, segsum
 from dpgo_tpu_torch.solvers import chordal, rtr
-from dpgo_tpu_torch.ops import lifted
 
 pytestmark = pytest.mark.gpu
 
@@ -47,7 +49,7 @@ def _check(dest, n, w, seed, dev):
 @pytest.mark.parametrize(
     "n,m,w",
     [(1000, 2600, 20), (517, 1399, 9), (100, 5, 12), (4096, 4096, 20),
-     (37, 200, 4), (50, 400, 70)],
+     (37, 200, 4), (50, 400, 70), (3000, 2800, 15)],
 )
 def test_kernel_matches_plain(cuda, n, m, w):
     rng = np.random.default_rng(n + m)
@@ -56,6 +58,63 @@ def test_kernel_matches_plain(cuda, n, m, w):
 
 def test_kernel_hotspot_and_empty_rows(cuda):
     _check(np.full(1000, 123), 500, 8, 7, cuda)
+    _check(np.full(1000, 123), 500, 40, 8, cuda)  # the column loop, w > 32
+
+
+def _random_case(n, m, r, dh, seed, hot=None, device="cpu"):
+    """Random edges i -> j with float32 (dh, dh) blocks, sorted into CSR
+    plans on `device`, and float32 (n, r*dh) numpy rows V and out0. With
+    `hot`, every edge points into row `hot` from the first tenth of the rows:
+    one row holds all ->j edges, and most rows are empty."""
+    rng = np.random.default_rng(seed)
+    if hot is None:
+        i, j = rng.integers(0, n, m), rng.integers(0, n, m)
+    else:
+        i, j = rng.integers(0, max(1, n // 10), m), np.full(m, hot)
+    E = rng.standard_normal((m, dh, dh)).astype(np.float32)
+    csr = quadratic.make_csr_plans(
+        torch.as_tensor(i, device=device), torch.as_tensor(j, device=device),
+        torch.as_tensor(E, device=device), n)
+    V = rng.standard_normal((n, r * dh)).astype(np.float32)
+    out0 = rng.standard_normal((n, r * dh)).astype(np.float32)
+    return csr, V, out0
+
+
+@pytest.mark.parametrize(
+    "n,m,r,dh,hot",
+    [(1000, 2600, 5, 3, None), (517, 1399, 5, 4, None), (300, 900, 12, 3, None),
+     (500, 1000, 5, 3, 123), (100, 5, 5, 3, None)],
+)
+def test_edge_matvec_matches_plain(cuda, n, m, r, dh, hot):
+    """w = 15, 20 and 36, a row with 1,000 edges among empty rows, and
+    nearly empty plans: the fused kernel against its plain version, and two
+    runs with identical bits."""
+    csr, V, out0 = _random_case(n, m, r, dh, seed=n + m, hot=hot, device=cuda)
+    V = torch.as_tensor(V, device=cuda)
+    out0 = torch.as_tensor(out0, device=cuda)
+    before = edge_matvec.LAUNCHES
+    out = edge_matvec.edge_matvec(out0.clone(), V, csr)
+    again = edge_matvec.edge_matvec(out0.clone(), V, csr)
+    torch.cuda.synchronize()
+    assert edge_matvec.LAUNCHES == before + 2
+    assert torch.equal(out, again)  # no atomics: identical bits
+    ref = edge_matvec.edge_matvec_reference(out0.clone(), V, csr)
+    abs_csr = dataclasses.replace(csr, E_by_j=csr.E_by_j.abs(),
+                                  E_by_i=csr.E_by_i.abs())
+    mag = out0.abs() + edge_matvec.edge_matvec_reference(
+        torch.zeros_like(out0), V.abs(), abs_csr).abs()
+    assert torch.all((out - ref).abs() <= 5e-5 * torch.clamp(mag, min=1.0))
+
+
+def test_edge_matvec_rejects_what_it_does_not_take(cuda):
+    csr, V, out0 = _random_case(40, 90, 5, 3, seed=1, device=cuda)
+    V, out = torch.as_tensor(V, device=cuda), torch.as_tensor(out0, device=cuda)
+    with pytest.raises(TypeError):
+        edge_matvec.edge_matvec(out.double(), V.double(), csr)
+    with pytest.raises(ValueError):  # plans on another device
+        edge_matvec.edge_matvec(out, V, _random_case(40, 90, 5, 3, seed=1)[0])
+    with pytest.raises(ValueError):
+        edge_matvec.edge_matvec(V, V, csr)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -74,7 +133,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 def test_mixed_slice_on_card_matches_cpu(cuda):
     """The slice at city2d(600) with the CSR plans forced on: the same cost
-    on the card (through the kernel) as on the CPU."""
+    on the card (through the fused edge kernel) as on the CPU."""
     edges, n, _ = datasets.synthesize_city2d(600, seed=0)
     d, r = 2, 5
     out = {}
@@ -87,13 +146,13 @@ def test_mixed_slice_on_card_matches_cpu(cuda):
             problem, torch.zeros((1, r, d + 1), dtype=torch.float64,
                                  device=dev), r=r)
         qd = quadratic.attach_csr_plans(qd, min_edges=0)
-        before = segsum.LAUNCHES
+        before = edge_matvec.LAUNCHES
         _, stats = rtr.rtr_solve(qd, X0, 1e-2, 100.0, max_iterations=100,
                                  max_inner=200, inner_dtype=torch.float32)
         out[str(dev)] = (2 * float(stats.f_opt), float(stats.gnorm_opt),
-                         segsum.LAUNCHES - before, int(stats.tcg_iters))
+                         edge_matvec.LAUNCHES - before, int(stats.tcg_iters))
     f_cpu, _, launches_cpu, _ = out["cpu"]
     f_gpu, g_gpu, launches_gpu, tcg = out["cuda"]
-    assert launches_cpu == 0 and launches_gpu >= 2 * tcg > 0
+    assert launches_cpu == 0 and launches_gpu >= tcg > 0
     assert g_gpu < 1e-2
     np.testing.assert_allclose(f_gpu, f_cpu, rtol=1e-6)
