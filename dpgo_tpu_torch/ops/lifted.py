@@ -6,15 +6,18 @@ r-by-d Stiefel matrix (Y_i^T Y_i = I_d) and p_i in R^r. The counterpart of
 dpgo_tpu/ops/lifted.py (reference: src/manifold/LiftedSEManifold.cpp,
 DPGO_utils.cpp:464-499), batched over the leading pose axis.
 
-Float32 products run in full float32 on the card as long as TF32 stays off
-(torch.backends.cuda.matmul.allow_tf32, False by default), which is what
-the tangent projections need: the normal component of their input is O(1)
-even when the projected result is tiny.
+Where the JAX package passes Precision.HIGHEST (the tangent projection and
+the Newton-Schulz polar), the port computes in full float32 whatever the
+TF32 setting (devices.highest): the normal component of a tangent
+projection's input is O(1) even when the projected result is tiny, and the
+Newton-Schulz iteration amplifies rounding.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dpgo_tpu_torch.devices import highest
 
 # Lifting matrices Y (r x d) shared by all agents, one per (d, r) in use.
 # dpgo_tpu draws them as qf(N(0, 1)) from jax.random.PRNGKey(1)
@@ -59,10 +62,21 @@ def assemble(Y: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.cat([Y, p[..., None]], dim=-1)
 
 
+def identity_lifted(
+    n: int, r: int, d: int, dtype=torch.float64, *, device
+) -> torch.Tensor:
+    """Vertically padded identity initialization (reference:
+    Poses.cpp:14-23): (n, r, d+1)."""
+    X = torch.zeros((n, r, d + 1), dtype=dtype, device=device)
+    X[:, :d, :d] = torch.eye(d, dtype=dtype, device=device)
+    return X
+
+
 def _sym(M: torch.Tensor) -> torch.Tensor:
     return 0.5 * (M + M.transpose(-1, -2))
 
 
+@highest
 def stiefel_proj_tangent(Y: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """Orthogonal projection onto the tangent space of St(d, r) at Y:
     P_Y(V) = V - Y sym(Y^T V)."""
@@ -116,6 +130,69 @@ def project_rotation(M: torch.Tensor) -> torch.Tensor:
     return (U * flip[..., None, :]) @ Vh
 
 
+def project_stiefel(M: torch.Tensor) -> torch.Tensor:
+    """Batched projection onto St(d, r) via thin SVD: U V^T
+    (reference: DPGO_utils.cpp:480-486)."""
+    U, _, Vh = torch.linalg.svd(M, full_matrices=False)
+    return U @ Vh
+
+
+def project_lifted(X: torch.Tensor) -> torch.Tensor:
+    """Project an arbitrary (..., r, d+1) tensor onto the lifted-pose
+    manifold: each Stiefel block via SVD, translations unchanged
+    (reference: LiftedSEManifold.cpp:34-45)."""
+    return assemble(project_stiefel(rotations(X)), translations(X))
+
+
+def _ns_step(Y: torch.Tensor) -> torch.Tensor:
+    """One Newton-Schulz polar step Y <- 1.5 Y - 0.5 Y (Y^T Y)."""
+    return 1.5 * Y - 0.5 * (Y @ (Y.transpose(-1, -2) @ Y))
+
+
+@highest
+def project_stiefel_ns(M: torch.Tensor, num_iters: int = 16) -> torch.Tensor:
+    """SVD-free Stiefel projection by the Newton-Schulz polar iteration,
+    which converges quadratically to U V^T for 0 < sigma < sqrt(3). Blocks
+    are pre-scaled by 1/||M||_F (a bound on sigma_max); the default 16
+    iterations cover sigma_min down to ~0.1."""
+    s = torch.sqrt((M * M).sum(dim=(-2, -1), keepdim=True))
+    Y = M / torch.clamp(s, min=torch.finfo(M.dtype).tiny)
+    for _ in range(num_iters):
+        Y = _ns_step(Y)
+    return Y
+
+
+def project_lifted_ns(X: torch.Tensor, num_iters: int = 16) -> torch.Tensor:
+    """project_lifted with the Newton-Schulz polar instead of SVD."""
+    return assemble(project_stiefel_ns(rotations(X), num_iters), translations(X))
+
+
+@highest
+def project_stiefel_ns_mixed(
+    M: torch.Tensor, num_iters: int = 16, refine_iters: int = 2
+) -> torch.Tensor:
+    """Newton-Schulz polar with the bulk of the iteration in float32 and
+    `refine_iters` polishing steps in the input dtype: its fixed points are
+    exactly the orthonormal matrices, so the polish takes the float32
+    result's ~3e-7 orthonormality to the input precision."""
+    if M.dtype == torch.float32:
+        return project_stiefel_ns(M, num_iters)
+    Y = project_stiefel_ns(M.to(torch.float32), num_iters).to(M.dtype)
+    for _ in range(refine_iters):
+        Y = _ns_step(Y)
+    return Y
+
+
+def project_lifted_ns_mixed(
+    X: torch.Tensor, num_iters: int = 16, refine_iters: int = 2
+) -> torch.Tensor:
+    """project_lifted with the mixed-precision Newton-Schulz polar."""
+    return assemble(
+        project_stiefel_ns_mixed(rotations(X), num_iters, refine_iters),
+        translations(X),
+    )
+
+
 def fixed_stiefel_variable(
     d: int, r: int, *, device, dtype=torch.float64
 ) -> torch.Tensor:
@@ -139,3 +216,10 @@ def inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(inner(a, a))
+
+
+def max_translation_distance(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+    """max_i ||p1_i - p2_i|| over every pose (reference: Poses.cpp:86-94),
+    the relative-change metric of local termination (PGOAgent.cpp:406)."""
+    diff = translations(X1) - translations(X2)
+    return torch.linalg.vector_norm(diff, dim=-1).max()

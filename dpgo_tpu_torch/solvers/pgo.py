@@ -13,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dpgo_tpu_torch import quadratic
+from dpgo_tpu_torch import devices, quadratic
 from dpgo_tpu_torch.measurements import (
     EdgeArrays,
     RelativeSEMeasurement,
@@ -46,12 +46,7 @@ def solve_pgo(
 
     device: None (the default) solves on the CUDA card and raises where
     there is none; pass device="cpu" to solve on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "solve_pgo runs on the CUDA card by default and there is "
-                "none; pass device='cpu' to solve on the CPU")
-        device = torch.device("cuda")
+    device = devices.resolve(device, "solve_pgo")
     d, n = num_poses_and_dim(measurements)
     if T0 is None:
         T = chordal_initialization(measurements, device=device)

@@ -156,3 +156,89 @@ def test_mixed_slice_on_card_matches_cpu(cuda):
     assert launches_cpu == 0 and launches_gpu >= tcg > 0
     assert g_gpu < 1e-2
     np.testing.assert_allclose(f_gpu, f_cpu, rtol=1e-6)
+
+
+def _grid_team(dev, A=4, r=5, n=125):
+    from dpgo_tpu_torch.parallel import spmd
+    from dpgo_tpu_torch.solvers.pgo import chordal_initialization
+
+    edges, n, _ = datasets.synthesize_grid3d(n, seed=0)
+    meas = edges.to_measurements()
+    problem, ranges = spmd.build_spmd_problem(meas, n, A, r, device=dev)
+    T = chordal_initialization(meas, device=dev)
+    X0 = torch.einsum("rd,nde->nre",
+                      lifted.fixed_stiefel_variable(3, r, device=dev), T)
+    return problem, spmd.initial_state(problem, X0, ranges, device=dev)
+
+
+@pytest.mark.parametrize("mode", ["all", "greedy"])
+def test_spmd_rounds_on_card_match_cpu(cuda, mode):
+    """Three accelerated rounds with the per-agent banded factor and the SVD
+    projection (float64): the card's state and metrics against the CPU's."""
+    from dpgo_tpu_torch.parallel import spmd
+
+    cfg = spmd.SPMDConfig(mode=mode, adaptive_restart=True, nesterov_n=5,
+                          rtr_gradnorm_tol=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        problem, state = _grid_team(dev)
+        step = spmd.make_step_fn(problem, cfg, device=dev)
+        assert step.precond == "banded"
+        sel = -1 if mode == "all" else 0
+        sels = []
+        for _ in range(3):
+            state, metrics, sel = step(state, sel)
+            sels.append(sel)
+        out[str(dev)] = (state.X.cpu(), metrics, sels)
+    (Xc, mc, sc), (Xg, mg, sg) = out["cpu"], out["cuda"]
+    assert sc == sg
+    torch.testing.assert_close(Xg, Xc, rtol=0, atol=1e-9)
+    for k in ("cost", "gradnorm"):
+        np.testing.assert_allclose(float(getattr(mg, k)), float(getattr(mc, k)),
+                                   rtol=1e-9)
+
+
+def test_banded_solve_on_card_matches_cpu(cuda):
+    """The exact banded factor, built and applied on the card, against the
+    CPU's (float64)."""
+    from dpgo_tpu_torch.ops import block_tridiag
+
+    edges, n, _ = datasets.synthesize_grid3d(1000, seed=0)
+    V = np.random.default_rng(0).standard_normal((n, 5, 4))
+    out = []
+    for dev in ("cpu", cuda):
+        problem = quadratic.from_private_measurements(edges, n=n, d=3, device=dev)
+        qd = quadratic.build_q_data(problem, 5, precond="banded")
+        assert isinstance(qd.btf, block_tridiag.BandedFactor)
+        out.append(quadratic.precond_solve(
+            qd, torch.as_tensor(V, device=dev)).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=1e-10, atol=1e-12)
+
+
+def test_rtr_solve_auto_escalates_on_card(cuda, monkeypatch):
+    """A one-iteration Jacobi probe, then the banded factor in float32 with
+    the CSR plans attached: the card launches the fused edge kernel and
+    lands on the CPU's cost."""
+    edges, n, _ = datasets.synthesize_grid3d(3375, seed=0)
+    res = {}
+    build = quadratic.build_quadratic_data
+    monkeypatch.setattr(quadratic, "build_quadratic_data", lambda *a, **kw: (
+        trace.append(kw["precond"]) or build(*a, **kw)))
+    for dev in ("cpu", cuda):
+        problem = quadratic.from_private_measurements(edges, n=n, d=3, device=dev)
+        T = chordal.chordal_initialization_arrays(edges, n=n, device=dev)
+        X0 = torch.einsum("rd,nde->nre",
+                          lifted.fixed_stiefel_variable(3, 5, device=dev), T)
+        trace = []
+        before = edge_matvec.LAUNCHES
+        _, stats = rtr.rtr_solve_auto(
+            problem, X0, gradnorm_tol=1e-2, max_iterations=100,
+            max_inner=200, probe_iterations=1, inner_dtype=torch.float32,
+            device=dev)
+        res[str(dev)] = (2 * float(stats.f_opt), float(stats.gnorm_opt),
+                         edge_matvec.LAUNCHES - before, trace)
+    f_cpu, _, l_cpu, p_cpu = res["cpu"]
+    f_gpu, g_gpu, l_gpu, p_gpu = res["cuda"]
+    assert p_cpu == p_gpu == ["jacobi", "banded"]
+    assert l_cpu == 0 and l_gpu > 0 and g_gpu < 1e-2
+    np.testing.assert_allclose(f_gpu, f_cpu, rtol=1e-6)
