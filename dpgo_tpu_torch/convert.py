@@ -1,12 +1,15 @@
 """Build the port's problem objects from the JAX package's arrays.
 
-The JAX package's LocalProblem, QuadraticData, SPMDProblem and SPMDState
-are pytrees of arrays; pass their data fields as numpy arrays
+The JAX package's LocalProblem, QuadraticData, ResidualData, SPMDProblem and
+SPMDState are pytrees of arrays; pass their data fields as numpy arrays
 ({name: np.asarray(value)}) and their meta fields (n, d, num_band,
 band_offsets; for an SPMDProblem also num_agents, n_max, r) as a dict, and
 get the port's object with the same values in the same edge order (the band
 ordering that plan_bands chose included). That hands both packages the
-identical problem. This module imports neither jax nor dpgo_tpu.
+identical problem: also a team that the JAX package's GNC reweighted
+(spmd_problem_from_numpy on its arrays). Checkpoints need no conversion:
+parallel.spmd.save_state and load_state share the JAX package's .npz layout.
+This module imports neither jax nor dpgo_tpu.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from dpgo_tpu_torch.parallel.spmd import SPMDProblem, SPMDState
-from dpgo_tpu_torch.quadratic import LocalProblem, QuadraticData
+from dpgo_tpu_torch.quadratic import LocalProblem, QuadraticData, ResidualData
 
 _INDEX_FIELDS = (
     "priv_i", "priv_j", "priv_lane", "shared_idx", "shared_nbr_slot",
@@ -29,7 +32,7 @@ _BOOL_FIELDS = (
     "robot_active", "do_restart",
 )
 _META_FIELDS = {"n", "d", "num_band", "band_offsets", "csr", "num_agents",
-                "n_max", "r", "btf", "block_rows"}
+                "n_max", "r", "btf", "block_rows", "res"}
 
 
 def _tensor(name: str, value, device, dtype) -> torch.Tensor:
@@ -66,6 +69,13 @@ def local_problem_from_numpy(
     )
 
 
+def residual_data_from_numpy(
+    fields: Mapping[str, np.ndarray], device, dtype=torch.float64,
+) -> ResidualData:
+    """The port's ResidualData from a JAX ResidualData's arrays."""
+    return ResidualData(**_data_fields(ResidualData, fields, device, dtype))
+
+
 def quadratic_data_from_numpy(
     fields: Mapping[str, np.ndarray], meta: Mapping, device,
     dtype=torch.float64,
@@ -73,7 +83,8 @@ def quadratic_data_from_numpy(
     """The port's QuadraticData from a JAX QuadraticData's arrays (Jacobi
     form: diag, off_i, off_j, off_E, G, precond_inv and optionally band_E).
     CSR plans are not taken over: attach them with
-    quadratic.attach_csr_plans."""
+    quadratic.attach_csr_plans, and the residual data
+    (residual_data_from_numpy) with dataclasses.replace(qd, res=...)."""
     return QuadraticData(
         n=int(meta["n"]), d=int(meta["d"]),
         band_offsets=tuple(int(o) for o in meta.get("band_offsets", ())),

@@ -15,6 +15,7 @@ Newton-Schulz iteration amplifies rounding.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dpgo_tpu_torch.devices import highest
@@ -45,6 +46,19 @@ _LIFTING = {
         (0.22710614139125201, 0.31799878234027734, 0.6581136455763871),
     ),
 }
+
+
+def to_flat(X: torch.Tensor) -> torch.Tensor:
+    """(n, r, d+1) -> (r, (d+1)*n), the reference's layout [X_1 ... X_n]
+    (reference: manifold/Poses.h:16-19)."""
+    n, r, dh = X.shape
+    return X.permute(1, 0, 2).reshape(r, n * dh)
+
+
+def from_flat(Xf: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(r, (d+1)*n) -> (n, r, d+1)."""
+    r = Xf.shape[0]
+    return Xf.reshape(r, n, d + 1).permute(1, 0, 2)
 
 
 def rotations(X: torch.Tensor) -> torch.Tensor:
@@ -193,6 +207,17 @@ def project_lifted_ns_mixed(
     )
 
 
+def random_stiefel(
+    generator: torch.Generator, r: int, d: int, dtype=torch.float64
+) -> torch.Tensor:
+    """Random point on St(d, r): qf of a standard Gaussian drawn from
+    `generator`, on the generator's device. (The JAX package draws from a
+    jax.random key; the two packages' points differ, both are uniform.)"""
+    G = torch.randn((r, d), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return _qf(G)
+
+
 def fixed_stiefel_variable(
     d: int, r: int, *, device, dtype=torch.float64
 ) -> torch.Tensor:
@@ -223,3 +248,66 @@ def max_translation_distance(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor
     the relative-change metric of local termination (PGOAgent.cpp:406)."""
     diff = translations(X1) - translations(X2)
     return torch.linalg.vector_norm(diff, dim=-1).max()
+
+
+def average_translation_distance(
+    X1: torch.Tensor, X2: torch.Tensor
+) -> torch.Tensor:
+    """mean_i ||p1_i - p2_i|| (reference: Poses.cpp:75-84)."""
+    diff = translations(X1) - translations(X2)
+    return torch.linalg.vector_norm(diff, dim=-1).mean()
+
+
+# ---------------------------------------------------------------------------
+# SE(d) pose utilities (T: (..., d, d+1))
+# ---------------------------------------------------------------------------
+
+def se_identity(n: int, d: int, dtype=torch.float64, *, device) -> torch.Tensor:
+    """(n, d, d+1) tensor of identity poses."""
+    T = torch.zeros((n, d, d + 1), dtype=dtype, device=device)
+    T[:, :, :d] = torch.eye(d, dtype=dtype, device=device)
+    return T
+
+
+def se_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Batched SE(d) inverse: [R, t] -> [R^T, -R^T t]
+    (reference: Poses.cpp:110-118)."""
+    Rt = T[..., :, :-1].transpose(-1, -2)
+    return torch.cat([Rt, -(Rt @ T[..., :, -1:])], dim=-1)
+
+
+def se_compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """Batched SE(d) composition [Ra, ta] * [Rb, tb] = [Ra Rb, Ra tb + ta]."""
+    Ra = Ta[..., :, :-1]
+    return torch.cat([Ra @ Tb[..., :, :-1],
+                      Ra @ Tb[..., :, -1:] + Ta[..., :, -1:]], dim=-1)
+
+
+def se_homogeneous(T: torch.Tensor) -> torch.Tensor:
+    """(..., d, d+1) -> homogeneous (..., d+1, d+1)."""
+    d = T.shape[-2]
+    bottom = T.new_zeros(T.shape[:-2] + (1, d + 1))
+    bottom[..., 0, d] = 1.0
+    return torch.cat([T, bottom], dim=-2)
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def check_stiefel(Y, atol: float = 1e-5) -> bool:
+    """Host-side validity check (reference: DPGO_utils.cpp:530-538)."""
+    Y = _numpy(Y)
+    d = Y.shape[-1]
+    err = np.linalg.norm(
+        np.swapaxes(Y, -1, -2) @ Y - np.eye(d), axis=(-2, -1)
+    )
+    return bool(np.all(err < atol))
+
+
+def check_rotation(R, atol: float = 1e-5) -> bool:
+    """Host-side validity check (reference: DPGO_utils.cpp:518-528)."""
+    R = _numpy(R)
+    if not check_stiefel(R, atol):
+        return False
+    return bool(np.all(np.abs(np.linalg.det(R) - 1.0) < atol))

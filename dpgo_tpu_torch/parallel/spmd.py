@@ -15,16 +15,27 @@ math runs with the agents stacked along a batch axis:
     its own tCG count and its own accepted shrink, as under the JAX
     package's vmap.
 
-Update modes: 'all' (every agent optimizes every round) and 'greedy' (only
+Update modes: 'all' (every agent optimizes every round), 'greedy' (only
 the agent with the largest block gradient norm, the reference example's
-rule, MultiRobotExample.cpp:233-247; the other agents pay one metric pass).
-The randomized modes ('uniform', 'async'), GNC reweighting, checkpoints and
-the residual-form control are not ported yet, and neither is a mesh.
+rule, MultiRobotExample.cpp:233-247; the other agents pay one metric pass),
+'uniform' (one agent drawn uniformly each round) and 'async' (each agent
+fires within a round with probability 1 - exp(-async_rate)). The two
+randomized modes draw from a torch.Generator seeded with (cfg.seed, round
+counter), so a round's draw is the same whatever the call pattern; the JAX
+package draws from jax.random instead, so the two packages' own draws
+differ, and every run function takes `selections` to replace the draw
+(that is how the parity tests run both packages on the same sequence).
+
+Outlier-robust solves: gnc_reweight updates the team's edge weights from
+the lifted residuals (GNC-TLS), run_rbcd_gnc alternates RBCD with weight
+updates under a growing mu, and edge_weight_table reads the weights back by
+global edge. save_state/load_state checkpoint the optimizer state in the
+JAX package's .npz layout. A device mesh is not ported yet.
 
 Nesterov acceleration follows PGOAgent.cpp:899-936: globally synchronized
 gamma/alpha recursions, Y/V auxiliary iterates with polar projection,
 periodic restart every `restart_interval` rounds and, optionally, the
-adaptive restart on a cost increase. Nothing here draws random numbers.
+adaptive restart on a cost increase.
 
 Drivers run on the CUDA card unless given another device, and loop on the
 host: one host sync per round (and per tCG iteration, inside the solve).
@@ -43,6 +54,7 @@ from dpgo_tpu_torch.devices import highest
 from dpgo_tpu_torch.measurements import RelativeSEMeasurement, homogeneous
 from dpgo_tpu_torch.ops import block_tridiag, lifted
 from dpgo_tpu_torch.parallel.partition import partition_measurements
+from dpgo_tpu_torch.robust import gnc_tls_weights
 from dpgo_tpu_torch.solvers import rtr as rtr_mod
 from dpgo_tpu_torch.types import PRECONDITIONER_SHIFT
 
@@ -140,19 +152,27 @@ class RoundMetrics(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SPMDConfig:
-    """The fields of the JAX package's SPMDConfig that the ported modes
-    read, with its defaults. Left out until the paths that read them are
-    ported: async_rate and seed (the randomized modes), restart_scheme (the
-    delta engine), rtr_residual_control (the residual form); and the
-    precision knobs: the port computes every float32 product in full
-    float32 (rtr_tcg_precision 'highest'), recomputes no inner Hessian in
-    full precision (rtr_exact_inner_hessian False), restarts on any cost
-    increase (restart_cost_rtol 0) and projects in mixed mode with the
-    float32 Newton-Schulz bulk and a full-precision polish
-    (ns_projection_dtype None)."""
+    """The JAX package's SPMDConfig with its defaults: every update mode,
+    the randomized modes' async_rate and seed, and the residual-form control
+    included. Still left out: restart_scheme, which only the delta engine
+    (not ported yet) reads; and the precision knobs: the port computes every
+    float32 product in full float32 (rtr_tcg_precision 'highest'),
+    recomputes no inner Hessian in full precision (rtr_exact_inner_hessian
+    False), restarts on any cost increase (restart_cost_rtol 0) and
+    projects in mixed mode with the float32 Newton-Schulz bulk and a
+    full-precision polish (ns_projection_dtype None)."""
 
-    mode: str = "all"  # 'all' | 'greedy' ('uniform', 'async': not ported)
+    mode: str = "all"  # 'all' | 'greedy' | 'uniform' | 'async'
     acceleration: bool = True
+    # mode='async': semantic-async RBCD. Each agent's Poisson clock fires
+    # within a round with probability 1 - exp(-async_rate) and only firing
+    # agents update (Poisson thinning of the RA-L 2020 asynchronous update
+    # model). The counterpart of the reference's per-agent host threads with
+    # Exp(rate) sleeps (PGOAgent.cpp:486-499): the round plays the role of a
+    # unit time slice, and updates within a round use round-start neighbor
+    # poses (bounded staleness, the partially-asynchronous model the RA-L
+    # analysis covers). Acceleration is forbidden, as in the reference (:477).
+    async_rate: float = 0.7
     restart_interval: int = 30
     # adaptive (function-scheme) restart on top of the periodic schedule:
     # restart whenever the global objective at X increased over the round
@@ -171,6 +191,12 @@ class SPMDConfig:
     # mixed mode: trust-region control matvecs in inner precision too
     # (make_two_phase_run_fn runs the bulk of a solve so)
     rtr_inner_control_matvecs: bool = False
+    # Residual-form trust-region control (quadratic.cost_grad_residual): the
+    # control gradient and cost are evaluated cancellation-free per edge, so
+    # the control dtype's eps applies to the residual rather than to the
+    # O(kappa |X|) near-cancelling partial sums of the matvec. Implies
+    # inner-control-matvec semantics for the cost decrease.
+    rtr_residual_control: bool = False
     # preconditioner of the local solves: 'auto' (the per-agent exact banded
     # factor when the stacked RCM plan fits the memory cap, else tridiag
     # when the odometry lane exists and n_max <= 5000, else block-Jacobi),
@@ -180,6 +206,8 @@ class SPMDConfig:
     # elastic membership: keep using an inactive neighbor's last (frozen)
     # pose instead of dropping its shared edges (PoseGraph.cpp:632-635)
     use_inactive_neighbors: bool = False
+    # seed of the 'uniform' and 'async' draws
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -547,17 +575,20 @@ def _edge_costs(team: _Team, X: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor
     return c_priv + c_shared
 
 
-def _with_linear_term(team: _Team, nbr: torch.Tensor):
+def _with_linear_term(team: _Team, nbr: torch.Tensor, residual: bool = False):
     """The team's data and its inner-precision copy (None unless mixed),
-    each with G rebuilt from the exchanged neighbor poses."""
+    each with G, and with `residual` (cfg.rtr_residual_control) the residual
+    data, rebuilt from the exchanged neighbor poses."""
     B, n, r, dh = team.pr.priv_i.shape[0], team.pr.n_max, team.pr.r, team.pr.dh
-    G = quadratic.build_linear_term(
-        team.lp, nbr.reshape(-1, r, dh), r).reshape(B, n, r, dh)
-    qd = dataclasses.replace(team.qd, G=G)
+    nbr = nbr.reshape(-1, r, dh)
+    G = quadratic.build_linear_term(team.lp, nbr, r).reshape(B, n, r, dh)
+    res = quadratic.build_residual_data(team.lp, nbr) if residual else None
+    qd = dataclasses.replace(team.qd, G=G, res=res)
     if team.qd_inner is None:
         return qd, None
+    dt = team.qd_inner.diag.dtype
     return qd, dataclasses.replace(
-        team.qd_inner, G=G.to(team.qd_inner.diag.dtype))
+        team.qd_inner, G=G.to(dt), res=None if res is None else res.to(dt))
 
 
 def _inner_dtype(cfg: SPMDConfig):
@@ -566,11 +597,11 @@ def _inner_dtype(cfg: SPMDConfig):
 
 def _agent_round(team: _Team, cfg: SPMDConfig, X0: torch.Tensor,
                  nbr: torch.Tensor, do_opt: torch.Tensor):
-    """The team's local rounds: rebuild G from the exchanged neighbor poses
-    and run the batched RTR solve. Returns (X_new, local Riemannian
+    """The team's local rounds: rebuild G (and the residual data) from the
+    exchanged neighbor poses and run the batched RTR solve. Returns (X_new, local Riemannian
     gradnorm at X0, cost contribution at X0), each agent's X_new its solve's
     where do_opt, else X0."""
-    qd, qd_inner = _with_linear_term(team, nbr)
+    qd, qd_inner = _with_linear_term(team, nbr, cfg.rtr_residual_control)
     Xopt, stats = rtr_mod.rtr_solve(
         qd, X0,
         gradnorm_tol=cfg.rtr_gradnorm_tol,
@@ -581,6 +612,7 @@ def _agent_round(team: _Team, cfg: SPMDConfig, X0: torch.Tensor,
         inner_dtype=_inner_dtype(cfg),
         exact_inner_hessian=False,
         inner_control_matvecs=cfg.rtr_inner_control_matvecs,
+        residual_control=cfg.rtr_residual_control,
         inner_data=qd_inner,
     )
     X_new = torch.where(do_opt[:, None, None, None], Xopt, X0)
@@ -592,10 +624,11 @@ def _agent_eval(team: _Team, cfg: SPMDConfig, X0: torch.Tensor,
                 nbr: torch.Tensor):
     """Selection and termination metrics at X0 only, no local solve: the
     same gradnorm convention as _agent_round."""
-    qd, qd_inner = _with_linear_term(team, nbr)
+    qd, qd_inner = _with_linear_term(team, nbr, cfg.rtr_residual_control)
     _, gnorm = rtr_mod.initial_cost_gradnorm(
         qd, X0, inner_dtype=_inner_dtype(cfg),
         inner_control_matvecs=cfg.rtr_inner_control_matvecs,
+        residual_control=cfg.rtr_residual_control,
         inner_data=qd_inner,
     )
     return gnorm, _edge_costs(team, X0, nbr)
@@ -623,18 +656,24 @@ def _projection(cfg: SPMDConfig, dtype):
 
 
 def _round_body(team: _Team, cfg: SPMDConfig, state: SPMDState, sel: int,
-                team_of):
+                team_of, fire: Optional[torch.Tensor] = None):
     """One synchronous round of the whole team.
 
-    sel: the agent that greedy selected, or -1 for 'all agents optimize'.
-    team_of(a): the one-agent team of agent a (the greedy path's solve)."""
+    sel: the agent that 'greedy' or 'uniform' selected, or -1 for 'all
+    agents optimize'. team_of(a): the one-agent team of agent a (the
+    single-selection path's solve). fire: in mode 'async', the (N,) bool
+    mask of the agents whose clock fired this round; sel is not read
+    then."""
     pr = team.pr
     N = pr.num_agents
     dtype = state.X.dtype
     active = pr.robot_active
     # inactive robots never optimize and their blocks stay frozen
     # (reference: PGOAgent.cpp:1173-1184)
-    do_opt = active.clone() if sel < 0 else active & (team.ids == sel)
+    if cfg.mode == "async":
+        do_opt = active & fire
+    else:
+        do_opt = active.clone() if sel < 0 else active & (team.ids == sel)
 
     def resolve_nbr(all_pub):
         # (N, ms, r, dh): each shared edge's neighbor pose
@@ -646,11 +685,12 @@ def _round_body(team: _Team, cfg: SPMDConfig, state: SPMDState, sel: int,
         return _edge_costs(team, X, nbr).sum()
 
     def solve_team(X_from, nbr_from):
-        """This round's local solves: (X_upd, gnorm_a, cost_a). Greedy with
-        a selection solves only the selected agent's block; every other
-        agent pays one metric pass (the reference's work profile,
-        MultiRobotExample.cpp:170-207). sel = -1 means all agents solve."""
-        if cfg.mode == "greedy" and sel >= 0:
+        """This round's local solves: (X_upd, gnorm_a, cost_a). 'greedy'
+        and 'uniform' with a selection solve only the selected agent's
+        block; every other agent pays one metric pass (the reference's work
+        profile, MultiRobotExample.cpp:170-207). sel = -1 means all agents
+        solve."""
+        if cfg.mode in ("greedy", "uniform") and sel >= 0:
             gnorm_a, cost_a = _agent_eval(team, cfg, X_from, nbr_from)
             s = min(max(sel, 0), N - 1)
             X_upd = X_from.clone()
@@ -722,16 +762,51 @@ def _round_body(team: _Team, cfg: SPMDConfig, state: SPMDState, sel: int,
     return new_state, metrics, gnorm_a
 
 
-def _select_next(gnorm_a: torch.Tensor, cfg: SPMDConfig) -> int:
+def _generator(cfg: SPMDConfig, it: int) -> torch.Generator:
+    """The generator of round `it`'s draw: seeded from (cfg.seed, it), so
+    the same round draws the same whatever the call pattern, and on the
+    CPU, so the draw does not depend on the device either. The CPU
+    generator reads 32 bits of its seed; numpy's SeedSequence mixes the
+    pair into them."""
+    g = torch.Generator()
+    g.manual_seed(int(np.random.SeedSequence([cfg.seed, it]).generate_state(
+        1, np.uint32)[0]))
+    return g
+
+
+def _async_fire(cfg: SPMDConfig, it: int, N: int, selections,
+                device) -> torch.Tensor:
+    """(N,) bool: the agents whose Poisson clock fires in the round that
+    starts at counter `it` (each with probability 1 - exp(-async_rate)), or
+    the injected mask selections[it]."""
+    if selections is not None:
+        fire = torch.as_tensor(np.array(selections[it]), dtype=torch.bool)
+        if fire.shape != (N,):
+            raise ValueError(f"selections[{it}] must be an ({N},) mask")
+    else:
+        p_fire = 1.0 - float(np.exp(-cfg.async_rate))
+        fire = torch.rand((N,), generator=_generator(cfg, it),
+                          dtype=torch.float64) < p_fire
+    return fire.to(device)
+
+
+def _select_next(gnorm_a: torch.Tensor, cfg: SPMDConfig, it: int,
+                 selections=None) -> int:
     """Next selected agent: greedy argmax block gradnorm (the first index on
-    ties), else -1 (all agents)."""
+    ties); uniform: the draw of the round just run, which started at counter
+    `it` (or the injected selections[it]); else -1 (all agents)."""
     if cfg.mode == "greedy":
         return int(torch.argmax(gnorm_a))
+    if cfg.mode == "uniform":
+        if selections is not None:
+            return int(selections[it])
+        return int(torch.randint(0, gnorm_a.shape[0], (),
+                                 generator=_generator(cfg, it)))
     return -1
 
 
 def _first_selection(cfg: SPMDConfig) -> int:
-    return -1 if cfg.mode == "all" else 0
+    return -1 if cfg.mode in ("all", "async") else 0
 
 
 # ---------------------------------------------------------------------------
@@ -739,11 +814,13 @@ def _first_selection(cfg: SPMDConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _validate_cfg(cfg: SPMDConfig) -> None:
-    if cfg.mode in ("uniform", "async"):
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} draws random selections; not ported yet")
-    if cfg.mode not in ("all", "greedy"):
+    if cfg.mode not in ("all", "greedy", "uniform", "async"):
         raise ValueError(f"unknown SPMD mode {cfg.mode!r}")
+    if cfg.mode == "async" and cfg.acceleration:
+        # the reference forbids acceleration in asynchronous mode
+        # (PGOAgent.cpp:477): the Nesterov recursions assume synchronized
+        # global round counters
+        raise ValueError("acceleration is not supported in async mode")
     if cfg.precond not in ("auto", "banded", "tridiag", "jacobi"):
         raise ValueError(f"unknown preconditioner {cfg.precond!r}")
 
@@ -766,11 +843,20 @@ class _Teams:
                                        slice(a, a + 1))
         return self._one[a]
 
-    def round(self, state: SPMDState, sel: int, cfg: SPMDConfig):
-        """One round under cfg; returns (state, metrics, next selection)."""
+    def round(self, state: SPMDState, sel: int, cfg: SPMDConfig,
+              selections=None):
+        """One round under cfg; returns (state, metrics, next selection).
+        selections: replaces the randomized modes' draws (module
+        docstring), indexed by the round counter state.it."""
+        fire, it = None, 0
+        if cfg.mode in ("uniform", "async"):
+            it = int(state.it)
+        if cfg.mode == "async":
+            fire = _async_fire(cfg, it, self.problem.num_agents, selections,
+                               state.X.device)
         new_state, metrics, gnorm_a = _round_body(
-            self.all, cfg, state, sel, self.one)
-        return new_state, metrics, _select_next(gnorm_a, cfg)
+            self.all, cfg, state, sel, self.one, fire)
+        return new_state, metrics, _select_next(gnorm_a, cfg, it, selections)
 
 
 def _setup(problem, cfg, mesh, device, caller):
@@ -783,23 +869,30 @@ def _setup(problem, cfg, mesh, device, caller):
 
 
 def make_step_fn(problem: SPMDProblem, cfg: SPMDConfig, mesh=None,
-                 device=None):
+                 device=None, selections=None):
     """One round as a function: step(state, sel) -> (state, metrics, next
     sel), sel an int (-1: all agents optimize). The round-invariant data
     (Q blocks, preconditioner factors) is built here, once.
 
     device: None (the default) runs on the CUDA card and raises where there
-    is none; the problem and each state move there."""
+    is none; the problem and each state move there.
+
+    selections: replaces the draws of the randomized modes. Indexed by the
+    round counter `it` (a sequence or a mapping): in 'uniform',
+    selections[it] is the agent drawn after the round that started at
+    counter `it`, which solves in the next round (the first round solves
+    agent 0); in 'async', selections[it] is the (N,) bool firing mask of the
+    round that starts at counter `it`."""
     problem, device, splan = _setup(problem, cfg, mesh, device, "make_step_fn")
     teams = _Teams(problem, cfg, splan)
     step = highest(lambda state, sel: teams.round(
-        devices.move(state, device), int(sel), cfg))
+        devices.move(state, device), int(sel), cfg, selections))
     step.precond = resolve_precond(problem, cfg, splan)
     return step
 
 
 def make_run_fn(problem: SPMDProblem, cfg: SPMDConfig, mesh=None,
-                device=None):
+                device=None, selections=None):
     """Run-to-tolerance driver: run(state, max_rounds, tol, problem=None,
     rel_tol=0.0) -> (state, last metrics, rounds).
 
@@ -811,24 +904,29 @@ def make_run_fn(problem: SPMDProblem, cfg: SPMDConfig, mesh=None,
     here (problem=None); a run given another problem of the same shapes
     (e.g. reweighted) builds it for that one, with the same banded plan.
 
-    device: as in make_step_fn. run.precond is the preconditioner the
-    agents got and run.splan the stacked banded plan (None without one)."""
+    device and selections: as in make_step_fn. run.precond is the
+    preconditioner the agents got and run.splan the stacked banded plan
+    (None without one)."""
+    given = problem
     problem, device, splan = _setup(problem, cfg, mesh, device, "make_run_fn")
-    run = _run_loop(_teams_of(problem, cfg, splan, device), cfg, device)
+    run = _run_loop(_teams_of(problem, cfg, splan, device, given), cfg,
+                    device, selections)
     run.precond = resolve_precond(problem, cfg, splan)
     run.splan = splan
     return run
 
 
-def _teams_of(problem, cfg, splan, device):
+def _teams_of(problem, cfg, splan, device, given):
     """teams_of(p): the round-invariant data of the problem given to the
-    run fn (p=None), built here, or of another problem p of the same shapes
-    (e.g. reweighted), built on first use with the same banded plan."""
+    run fn (p=None, or p the object `given` that the caller built it
+    with), built here, or of another problem p of the same shapes (e.g.
+    reweighted): Q blocks and the preconditioner's factor from p's weights,
+    built on first use with the same banded plan."""
     base = _Teams(problem, cfg, splan)
     last = {}
 
     def teams_of(p):
-        if p is None:
+        if p is None or p is given:
             return base
         if last.get("problem") is not p:
             last.update(problem=p, teams=_Teams(devices.move(p, device), cfg,
@@ -838,7 +936,7 @@ def _teams_of(problem, cfg, splan, device):
     return teams_of
 
 
-def _run_loop(teams_of, cfg, device):
+def _run_loop(teams_of, cfg, device, selections=None):
     """make_run_fn's run over prebuilt data, its rounds under cfg."""
 
     @highest
@@ -851,7 +949,7 @@ def _run_loop(teams_of, cfg, device):
         rounds = 0
         while (rounds < max_rounds and float(metrics.gradnorm) >= tol
                and float(metrics.max_rel_change) >= rel_tol):
-            state, metrics, sel = teams.round(state, sel, cfg)
+            state, metrics, sel = teams.round(state, sel, cfg, selections)
             rounds += 1
         return state, metrics, rounds
 
@@ -864,6 +962,7 @@ def make_two_phase_run_fn(
     mesh=None,
     switch_factor: float = 4.0,
     device=None,
+    selections=None,
 ):
     """Run-to-tolerance driver with a fast/exact phase split for mixed
     precision: rounds run with inner-precision control matvecs
@@ -884,19 +983,22 @@ def make_two_phase_run_fn(
     Both phases share one build of the round-invariant data (the control
     matvecs' precision is a property of the round, not of the data).
 
-    device: as in make_step_fn; run.precond and run.splan as in
-    make_run_fn."""
+    device and selections: as in make_step_fn; run.precond and run.splan as
+    in make_run_fn."""
+    given = problem
     problem, device, splan = _setup(problem, cfg, mesh, device,
                                     "make_two_phase_run_fn")
-    teams_of = _teams_of(problem, cfg, splan, device)
+    teams_of = _teams_of(problem, cfg, splan, device, given)
     if cfg.rtr_inner_dtype is None:
-        fns = [(_run_loop(teams_of, cfg, device), 1.0)]
+        fns = [(_run_loop(teams_of, cfg, device, selections), 1.0)]
     else:
         fns = [
             (_run_loop(teams_of, dataclasses.replace(
-                cfg, rtr_inner_control_matvecs=True), device), switch_factor),
+                cfg, rtr_inner_control_matvecs=True), device, selections),
+             switch_factor),
             (_run_loop(teams_of, dataclasses.replace(
-                cfg, rtr_inner_control_matvecs=False), device), 1.0),
+                cfg, rtr_inner_control_matvecs=False), device, selections),
+             1.0),
         ]
 
     def run(state, max_rounds, tol, problem=None, rel_tol=0.0):
@@ -934,13 +1036,14 @@ def run_rbcd_spmd(
     gradnorm_tol: Optional[float] = None,
     check_every: int = 10,
     device=None,
+    selections=None,
 ):
     """Run synchronous RBCD rounds, checking termination every
     `check_every` rounds. Returns (state, trace dict of rounds and the
     checked costs and gradnorms).
 
-    device: as in make_step_fn."""
-    step = make_step_fn(problem, cfg, mesh, device)
+    device and selections: as in make_step_fn."""
+    step = make_step_fn(problem, cfg, mesh, device, selections)
     sel = _first_selection(cfg)
     tol = cfg.gradnorm_tol if gradnorm_tol is None else gradnorm_tol
 
@@ -956,6 +1059,196 @@ def run_rbcd_spmd(
         if gnorms[-1] < tol:
             break
     return state, {"rounds": rounds, "cost": costs, "gradnorm": gnorms}
+
+
+# ---------------------------------------------------------------------------
+# Distributed GNC (reference: PGOAgent.cpp:997-1142)
+# ---------------------------------------------------------------------------
+
+@highest
+def _gnc_residuals_sq(problem: SPMDProblem, state: SPMDState):
+    """Squared lifted residuals of all edges at state.X: ((N, mp), (N, ms)),
+    the shared edges' against the current public poses. Padded edges report
+    0 (kappa = tau = 0)."""
+    pr, d, X = problem, problem.d, state.X
+    all_pub = _gather_pub(X, pr.pub_idx)
+    nbr = all_pub[pr.shared_nbr_robot, pr.shared_nbr_slot]
+
+    def rows(idx):
+        return torch.take_along_dim(X, idx[..., None, None], dim=1)
+
+    def r_sq(tail, head, T, kappa, tau):
+        rot = ((tail[..., :d] @ T[..., :d, :d] - head[..., :d]) ** 2
+               ).sum(dim=(-2, -1))
+        tr = ((tail[..., :d] @ T[..., :d, d:] + tail[..., d:]
+               - head[..., d:]) ** 2).sum(dim=(-2, -1))
+        return kappa * rot + tau * tr
+
+    r_sq_priv = r_sq(rows(pr.priv_i), rows(pr.priv_j), pr.priv_T,
+                     pr.priv_kappa, pr.priv_tau)
+    Xl = rows(pr.shared_idx)
+    out = pr.shared_outgoing[..., None, None]
+    r_sq_shared = r_sq(torch.where(out, Xl, nbr), torch.where(out, nbr, Xl),
+                       pr.shared_T, pr.shared_kappa, pr.shared_tau)
+    return r_sq_priv, r_sq_shared
+
+
+def _apply_gnc_weights(problem: SPMDProblem, r_sq_priv, r_sq_shared,
+                       barc_sq: float, mu: float) -> SPMDProblem:
+    """GNC-TLS weight update from squared residuals. Weights of fixed-weight
+    edges (odometry) are untouched; shared edges to an inactive neighbor
+    keep their last weight: the reference skips inactive robots in weight
+    updates (PGOAgent.cpp:1015-1016), and their cached pose may be stale, so
+    the residual is not trustworthy."""
+    new_priv_w = torch.where(
+        problem.priv_fixed_weight, problem.priv_weight,
+        gnc_tls_weights(r_sq_priv, barc_sq, mu))
+    nbr_inactive = ~problem.robot_active[problem.shared_nbr_robot]
+    new_shared_w = torch.where(
+        problem.shared_fixed_weight | nbr_inactive, problem.shared_weight,
+        gnc_tls_weights(r_sq_shared, barc_sq, mu))
+    return dataclasses.replace(
+        problem, priv_weight=new_priv_w, shared_weight=new_shared_w)
+
+
+def gnc_reweight(problem: SPMDProblem, state: SPMDState, barc_sq: float,
+                 mu: float) -> SPMDProblem:
+    """Distributed GNC-TLS measurement reweighting (reference:
+    PGOAgent.cpp:1062-1142, computeMeasurementResidual +
+    updateMeasurementWeights, as batched tensor ops): residuals in the
+    lifted space at the current X (private edges) and against the current
+    public poses (shared edges), on the state's device."""
+    problem = devices.move(problem, state.X.device)
+    r_sq_priv, r_sq_shared = _gnc_residuals_sq(problem, state)
+    return _apply_gnc_weights(problem, r_sq_priv, r_sq_shared, barc_sq, mu)
+
+
+def run_rbcd_gnc(
+    problem: SPMDProblem,
+    state: SPMDState,
+    cfg: SPMDConfig,
+    barc: float = 5.0,
+    init_mu: Optional[float] = None,
+    mu_step: float = 1.4,
+    num_weight_updates: int = 10,
+    inner_rounds: int = 30,
+    rel_change_tol: float = 5e-3,
+    mesh=None,
+    device=None,
+    selections=None,
+):
+    """Distributed GNC-TLS: alternate RBCD with team-wide weight updates and
+    a growing mu (the reference's distributed robust schedule,
+    PGOAgent.cpp:997-1142).
+
+    Weight updates are convergence-gated like the reference's
+    shouldUpdateMeasurementWeights (PGOAgent.cpp:997-1046): each inner phase
+    runs until the team-wide max relative change drops below rel_change_tol
+    (every agent readyToTerminate) or the `inner_rounds` budget is
+    exhausted, whichever comes first. Before the first weight update the
+    loose threshold 5.0 is used (PGOAgent.cpp:411-415).
+
+    init_mu=None uses the adaptive initialization of the reference's batch
+    GNC (DPGO_solver.cpp:356-358): mu0 = barc^2 / (2 max r^2 - barc^2), at
+    the first converged iterate: gentle annealing when the initial guess is
+    outlier-polluted. Each phase rebuilds the round-invariant data (Q
+    blocks, preconditioner factors) from the current weights.
+
+    device and selections: as in make_step_fn. Returns (problem, state,
+    history)."""
+    barc_sq = barc * barc
+    run = make_run_fn(problem, cfg, mesh, device, selections)
+    mu = init_mu
+    history = []
+    for k in range(num_weight_updates):
+        rel_tol = 5.0 if k == 0 else rel_change_tol
+        state, metrics, rounds = run(
+            state, inner_rounds, 0.0, problem=problem, rel_tol=rel_tol)
+        if mu is None:
+            r_sq_p, r_sq_s = _gnc_residuals_sq(
+                devices.move(problem, state.X.device), state)
+            r_max = float(torch.maximum(r_sq_p.max(), r_sq_s.max()))
+            mu = barc_sq / max(2.0 * r_max - barc_sq, barc_sq * 1e-3)
+        problem = gnc_reweight(problem, state, barc_sq, mu)
+        mu *= mu_step
+        history.append(
+            {"rounds": int(rounds), "cost": float(metrics.cost), "mu": mu})
+    return problem, state, history
+
+
+def edge_weight_table(problem: SPMDProblem, ranges):
+    """Host-side diagnostic: every real edge's global (p1, p2) pair with its
+    current GNC weight and fixed flag, to score outlier rejection against a
+    planted-outlier ground truth.
+
+    Private edges appear once; shared edges once per endpoint copy (the GNC
+    update drives both copies identically: gnc_reweight reweights from the
+    same team-wide residuals). Ordered pairs: (tail, head) as measured.
+    Returns a list of dicts {pair, weight, fixed, shared}, agent by agent,
+    private edges first, in slot order."""
+    f = {k: getattr(problem, k).detach().cpu().numpy() for k in (
+        "priv_kappa", "priv_i", "priv_j", "priv_weight", "priv_fixed_weight",
+        "shared_kappa", "shared_idx", "shared_weight", "shared_fixed_weight",
+        "shared_outgoing", "shared_nbr_robot", "shared_nbr_slot", "pub_idx")}
+    starts = np.asarray([s for s, _ in ranges], np.int64)
+    out = []
+    for a in range(f["priv_kappa"].shape[0]):
+        for k in np.nonzero(f["priv_kappa"][a] > 0)[0]:
+            out.append({
+                "pair": (int(starts[a] + f["priv_i"][a, k]),
+                         int(starts[a] + f["priv_j"][a, k])),
+                "weight": float(f["priv_weight"][a, k]),
+                "fixed": bool(f["priv_fixed_weight"][a, k]),
+                "shared": False,
+            })
+        for k in np.nonzero(f["shared_kappa"][a] > 0)[0]:
+            nr, ns = f["shared_nbr_robot"][a, k], f["shared_nbr_slot"][a, k]
+            local_g = int(starts[a] + f["shared_idx"][a, k])
+            nbr_g = int(starts[nr] + f["pub_idx"][nr, ns])
+            out.append({
+                "pair": (local_g, nbr_g) if f["shared_outgoing"][a, k]
+                else (nbr_g, local_g),
+                "weight": float(f["shared_weight"][a, k]),
+                "fixed": bool(f["shared_fixed_weight"][a, k]),
+                "shared": True,
+            })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+def save_state(state: SPMDState, path: str) -> None:
+    """Checkpoint the optimizer state as .npz, with the keys and dtypes of
+    dpgo_tpu.parallel.spmd.save_state (the round counter as int32), so
+    either package loads the other's checkpoints."""
+    a = {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+    a["it"] = a["it"].astype(np.int32)
+    np.savez(path, **a)
+
+
+def load_state(path: str, device=None) -> SPMDState:
+    """Resume an optimizer state saved by save_state (either package's;
+    old checkpoints without cost_X and do_restart too).
+
+    device: None (the default) puts it on the CUDA card and raises where
+    there is none."""
+    device = devices.resolve(device, "load_state")
+    z = np.load(path)
+    dtype = getattr(torch, z["X"].dtype.name)
+
+    def t(name, default=None, dt=dtype):
+        a = z[name] if name in z else default
+        return torch.as_tensor(np.array(a), device=device).to(dt)
+
+    return SPMDState(
+        X=t("X"), Y=t("Y"), V=t("V"), gamma=t("gamma"),
+        it=t("it", dt=torch.int64),
+        # absent in old checkpoints
+        cost_X=t("cost_X", np.inf),
+        do_restart=t("do_restart", False, torch.bool),
+    )
 
 
 def assemble_global(

@@ -18,8 +18,12 @@ gather-multiply-reduce over the destination-sorted edges, ops/edge_matvec.py
 
 The preconditioner of (Q + shift I) is block-Jacobi, the cyclic-reduction
 factor of its block-tridiagonal part, or the exact banded factor
-(ops/block_tridiag.py). The residual form (build_residual_data,
-cost_grad_residual) is not ported yet.
+(ops/block_tridiag.py).
+
+The residual form (build_residual_data, cost_grad_residual) evaluates the
+same objective and Euclidean gradient edge by edge from the residuals
+X_i T - X_j, without the matvec form's cancellation; the trust-region
+control of solvers/rtr.py reads it under residual_control.
 
 Batches of independent problems: the SPMD engine stacks its agents' poses
 into one problem of A*n rows (block_rows = n, edges never leave a block) and
@@ -112,6 +116,40 @@ class CSRPlans:
 
 
 @dataclasses.dataclass(frozen=True)
+class ResidualData:
+    """Edge data of the residual-form objective and gradient
+    (cost_grad_residual): mathematically the matvec form X Q + G, but each
+    edge contributes O(residual) directly instead of the near-cancelling
+    O(kappa |X|) partial sums of the matvec, so a float32 evaluation is
+    accurate to ~eps * residual.
+
+    priv_om / shared_om / prior_om are the weight-scaled per-column Omega
+    diagonals (m, dh) = diag(w kappa, ..., w kappa, w tau) (shared_om
+    includes shared_mask). nbr holds the resolved neighbor pose of each
+    shared edge: round-dependent, like the linear term G."""
+
+    priv_i: torch.Tensor
+    priv_j: torch.Tensor
+    priv_T: torch.Tensor
+    priv_om: torch.Tensor
+    shared_idx: torch.Tensor
+    shared_T: torch.Tensor
+    shared_om: torch.Tensor
+    shared_outgoing: torch.Tensor
+    nbr: torch.Tensor
+    prior_idx: torch.Tensor
+    prior_pose: torch.Tensor
+    prior_om: torch.Tensor
+
+    def to(self, dtype: torch.dtype) -> "ResidualData":
+        """Cast every floating tensor to `dtype`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dtype)
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name).is_floating_point()})
+
+
+@dataclasses.dataclass(frozen=True)
 class QuadraticData:
     """Assembled data matrices of f(X) = 0.5 <X Q, X> + <X, G>.
 
@@ -133,6 +171,8 @@ class QuadraticData:
                   ('banded'), batched over the blocks of a batch
     block_rows  : rows per independent block of a batch (0: one block); the
                   band lanes never reach across a block
+    res         : optional ResidualData (build_residual_data), which the
+                  trust-region control reads under residual_control
     """
 
     n: int
@@ -148,11 +188,13 @@ class QuadraticData:
     band_offsets: tuple = ()
     btf: Optional[object] = None
     block_rows: int = 0
+    res: Optional[ResidualData] = None
 
     def to(self, dtype: torch.dtype) -> "QuadraticData":
-        """Cast every floating tensor, the CSR plans' edge blocks and the
-        preconditioner's factor included, to `dtype` (index tensors keep
-        theirs). The mixed-precision solve runs its tCG on such a copy."""
+        """Cast every floating tensor, the CSR plans' edge blocks, the
+        preconditioner's factor and the residual data included, to `dtype`
+        (index tensors keep theirs). The mixed-precision solve runs its tCG
+        on such a copy."""
         cast = lambda t: None if t is None else t.to(dtype)  # noqa: E731
         csr = self.csr
         if csr is not None:
@@ -164,6 +206,7 @@ class QuadraticData:
             G=cast(self.G), precond_inv=cast(self.precond_inv),
             band_E=cast(self.band_E), csr=csr,
             btf=None if self.btf is None else self.btf.to(dtype),
+            res=None if self.res is None else self.res.to(dtype),
         )
 
 
@@ -341,6 +384,97 @@ def build_linear_term(
             0, problem.prior_idx, -problem.prior_pose * om_prior[:, None, :]
         )
     return G
+
+
+def build_residual_data(
+    problem: LocalProblem, nbr_poses: torch.Tensor
+) -> ResidualData:
+    """Pack the edge data that cost_grad_residual needs. Round-dependent
+    only through `nbr_poses` (like build_linear_term); everything else is
+    the LocalProblem's own tensors."""
+    d = problem.d
+    om_p = _omega(problem.priv_kappa, problem.priv_tau, problem.priv_weight, d)
+    om_s = _omega(
+        problem.shared_kappa, problem.shared_tau, problem.shared_weight, d
+    ) * problem.shared_mask[:, None]
+    return ResidualData(
+        priv_i=problem.priv_i, priv_j=problem.priv_j,
+        priv_T=problem.priv_T, priv_om=om_p,
+        shared_idx=problem.shared_idx, shared_T=problem.shared_T,
+        shared_om=om_s, shared_outgoing=problem.shared_outgoing,
+        nbr=nbr_poses[problem.shared_nbr_slot],
+        prior_idx=problem.prior_idx, prior_pose=problem.prior_pose,
+        prior_om=_prior_omega(problem, problem.priv_T.dtype),
+    )
+
+
+@highest
+def cost_grad_residual(rd: ResidualData, X: torch.Tensor):
+    """Objective and Euclidean gradient in residual form.
+
+    For each edge with homogeneous T = [[R, t], [0, 1]] and per-column
+    weights om: Res = X_i T - X_j (r, dh), f_e = 0.5 <Res diag(om), Res>,
+    with gradient contributions dX_i += (Res om) T^T, dX_j -= (Res om).
+    Shared edges use the cached neighbor pose for the remote end (reference:
+    constructG, PoseGraph.cpp:493-580); priors use Res = X_k - prior_pose.
+
+    Equal, in exact arithmetic, to (cost(qd, X), euc_grad(qd, X)) up to a
+    constant objective offset 0.5 sum_shared ||X_nbr||^2_om + 0.5
+    sum_priors ||P||^2_om (the complete-residual convention); constant
+    offsets cancel in every trust-region decision. Every term is
+    O(residual), so a float32 evaluation has ~eps ||residual|| absolute
+    error where the matvec form X Q + G loses its digits near convergence.
+    Float32 products run in full float32 (the JAX package passes
+    Precision.HIGHEST here).
+
+    X: (n, r, dh) gives a scalar cost; a batch (A, n/A, r, dh) over the
+    same rows, whose edges never leave a block, gives an (A,) cost. The
+    scatter-adds are index_add_, atomics on a CUDA device: there the sums
+    vary run to run at rounding."""
+    shape = X.shape
+    r, dh = shape[-2], shape[-1]
+    Xf = X.reshape(-1, r * dh)
+    n = Xf.shape[0]
+    G = torch.zeros_like(Xf)
+    # per-row cost, summed per block at the end
+    f_rows = torch.zeros((n,), dtype=X.dtype, device=X.device)
+
+    def edge_cost(Res, Rw):
+        return 0.5 * (Res * Rw).sum(dim=(-2, -1))
+
+    m = rd.priv_i.shape[0]
+    if m > 0:
+        Xi = Xf[rd.priv_i].reshape(m, r, dh)
+        Xj = Xf[rd.priv_j].reshape(m, r, dh)
+        Res = Xi @ rd.priv_T - Xj
+        Rw = Res * rd.priv_om[:, None, :]
+        f_rows.index_add_(0, rd.priv_i, edge_cost(Res, Rw))
+        gi = Rw @ rd.priv_T.transpose(-1, -2)
+        G.index_add_(0, rd.priv_i, gi.reshape(m, r * dh))
+        G.index_add_(0, rd.priv_j, Rw.reshape(m, r * dh), alpha=-1)
+
+    # shared edges (remote end = cached neighbor pose)
+    ms = rd.shared_idx.shape[0]
+    if ms > 0:
+        Xl = Xf[rd.shared_idx].reshape(ms, r, dh)
+        out_f = rd.shared_outgoing[:, None, None]
+        tail = torch.where(out_f, Xl, rd.nbr)
+        head = torch.where(out_f, rd.nbr, Xl)
+        Res = tail @ rd.shared_T - head
+        Rw = Res * rd.shared_om[:, None, :]
+        f_rows.index_add_(0, rd.shared_idx, edge_cost(Res, Rw))
+        contrib = torch.where(out_f, Rw @ rd.shared_T.transpose(-1, -2), -Rw)
+        G.index_add_(0, rd.shared_idx, contrib.reshape(ms, r * dh))
+
+    npr = rd.prior_idx.shape[0]
+    if npr > 0:
+        Res = Xf[rd.prior_idx].reshape(npr, r, dh) - rd.prior_pose
+        Rw = Res * rd.prior_om[:, None, :]
+        f_rows.index_add_(0, rd.prior_idx, edge_cost(Res, Rw))
+        G.index_add_(0, rd.prior_idx, Rw.reshape(npr, r * dh))
+
+    f = f_rows.reshape(shape[:-3] + (-1,)).sum(dim=-1)
+    return f, G.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

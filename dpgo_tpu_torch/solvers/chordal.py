@@ -1,9 +1,9 @@
-"""Chordal initialization.
+"""Chordal initialization and odometry initialization.
 
 The counterpart of dpgo_tpu/solvers/chordal.py (reference:
-src/DPGO_solver.cpp:220-269, src/DPGO_utils.cpp:346-462): matrix-free
+src/DPGO_solver.cpp:220-303, src/DPGO_utils.cpp:346-462): matrix-free
 Jacobi-preconditioned CG on the normal equations in place of the
-reference's SPQR solve.
+reference's SPQR solve, and the odometry chain as a prefix product.
 
 Rotation stage:    min_{Rot_i in R^{d x d}, Rot_0 = I}  sum_e kappa_e ||Rot_i R_e - Rot_j||_F^2
 Translation stage: min_{t_i, t_0 = 0}                  sum_e tau_e   ||t_j - t_i - Rot_i t_e||^2
@@ -17,9 +17,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from dpgo_tpu_torch.measurements import EdgeArrays
+from dpgo_tpu_torch.measurements import EdgeArrays, homogeneous
 from dpgo_tpu_torch.ops import lifted
 
 
@@ -189,3 +190,64 @@ def chordal_initialization_arrays(
         i, j, R, t, tau, Rot.to(cg_dt), n, tol=tol, maxiter=maxiter
     )
     return torch.cat([Rot, tv[:, :, None].to(dtype)], dim=-1)
+
+
+def _odometry_chain(T_start: torch.Tensor, rel_T: torch.Tensor) -> torch.Tensor:
+    """Compose a chain of homogeneous relative transforms:
+    T_k = T_start * rel_1 * ... * rel_k. rel_T: (n-1, dh, dh); returns
+    (n, dh, dh).
+
+    The inclusive prefix product runs as a doubling scan: in step s = 1, 2,
+    4, ... every element k >= s becomes seq[k - s] @ seq[k], one batched
+    product per step and ceil(log2 n) steps (17 at 100,000 poses) instead of
+    n - 1 dependent products. The JAX package's associative_scan brackets
+    the same product differently, and a sequential loop differently again,
+    so the three agree to rounding, not in bits."""
+    seq = torch.cat([T_start[None], rel_T], dim=0)
+    n, s = seq.shape[0], 1
+    while s < n:
+        seq = torch.cat([seq[:s], seq[:-s] @ seq[s:]], dim=0)
+        s *= 2
+    return seq
+
+
+def odometry_initialization_arrays(
+    odometry: EdgeArrays,
+    n: Optional[int] = None,
+    partial_trajectory=None,
+    dtype=torch.float64,
+    *,
+    device,
+) -> torch.Tensor:
+    """Odometry (dead-reckoning) initialization. Returns T: (n, d, d+1) in
+    `dtype` on `device` (reference: DPGO_solver.cpp:271-303).
+
+    partial_trajectory: optional (k, d, d+1) prefix to preserve; the
+    remaining poses are extended by composing odometry from pose k-1."""
+    if partial_trajectory is not None and torch.is_tensor(partial_trajectory):
+        partial_trajectory = partial_trajectory.detach().cpu().numpy()
+    if odometry.m == 0 and partial_trajectory is None:
+        raise ValueError("empty odometry")
+    d = odometry.d if odometry.m > 0 else np.asarray(partial_trajectory).shape[-2]
+    if n is None:
+        n = (int(odometry.p2.max()) + 1) if odometry.m > 0 \
+            else len(partial_trajectory)
+
+    # odometry edges must form the chain k -> k+1; sort by source index
+    order = np.argsort(np.asarray(odometry.p1))
+    Rh = homogeneous(odometry.R[order], odometry.t[order])
+
+    def tensor(x):
+        return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+
+    if partial_trajectory is not None and len(partial_trajectory) > 0:
+        k = min(len(partial_trajectory), n)
+        prefix = tensor(partial_trajectory[:k])
+        if k >= n:
+            return prefix
+        Tk = lifted.se_homogeneous(prefix[k - 1])
+        chain = _odometry_chain(Tk, tensor(Rh[k - 1: n - 1]))
+        return torch.cat([prefix, chain[1:, :d, :]], dim=0)
+
+    T0 = torch.eye(d + 1, dtype=dtype, device=device)
+    return _odometry_chain(T0, tensor(Rh[: n - 1]))[:, :d, :]

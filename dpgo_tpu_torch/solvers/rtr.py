@@ -219,11 +219,14 @@ def _rtr_iteration(
 
     inner_control_matvecs: with mixed precision, take the cost decrease from
     the cancellation-free identity f(X') - f(X) = 0.5 <(X + X') Q, X' - X>
-    + <X' - X, G> with the matvecs in inner precision."""
-    if residual_control:
-        raise NotImplementedError(
-            "residual_control needs the residual form, not ported yet"
-        )
+    + <X' - X, G> with the matvecs in inner precision.
+
+    residual_control: the new Euclidean gradient comes from the residual
+    form (quadratic.cost_grad_residual on qd.res, in the inner precision
+    where there is one) and the cost decrease from the identity, exact for
+    a quadratic, f(X') - f(X) = 0.5 <X' - X, eg + eg'> with the Euclidean
+    gradients carried in the state: both accurate to ~eps * residual in the
+    control dtype, and no full matvec."""
     if qd_inner is not None:
         dt = qd_inner.diag.dtype
         tcg = _tcg(
@@ -240,7 +243,14 @@ def _rtr_iteration(
         tcg = _tcg(qd, state.X, state.S, state.grad, state.radius, max_inner,
                    tcg_unroll)
     X_new = lifted.retract(state.X, tcg.eta)
-    if qd_inner is not None and inner_control_matvecs:
+    if residual_control:
+        qd_c = qd if qd_inner is None else qd_inner
+        D = X_new - state.X
+        _, eg_new = quadratic.cost_grad_residual(
+            qd_c.res, X_new.to(qd_c.diag.dtype))
+        eg = eg_new.to(state.X.dtype)
+        f_new = state.fx + 0.5 * (_dot(D, state.eg) + _dot(D, eg))
+    elif qd_inner is not None and inner_control_matvecs:
         dt = qd_inner.diag.dtype
         D = X_new - state.X
         qs = quadratic.q_matvec(qd_inner, (state.X + X_new).to(dt))
@@ -257,10 +267,20 @@ def _rtr_iteration(
     model_decrease = -(
         _dot(state.grad, tcg.eta) + 0.5 * _dot(tcg.eta, tcg.Heta)
     )
-    # small regularization guards rho against cancellation near convergence
-    eps = torch.finfo(state.fx.dtype).eps
-    reg = 1e3 * eps * torch.clamp(torch.abs(state.fx), min=1.0)
-    rho = (state.fx - f_new + reg) / (model_decrease + reg)
+    if residual_control:
+        # rho without numerator inflation: the decrease is cancellation-free
+        # here, so a true cost increase must be rejected (the cost-scaled
+        # guard below would accept noise steps near convergence, which
+        # Nesterov then amplifies). The denominator's floor only avoids 0/0
+        # (the Steihaug decrease is >= 0).
+        rho = (state.fx - f_new) / torch.clamp(
+            model_decrease, min=torch.finfo(state.fx.dtype).tiny)
+    else:
+        # small regularization guards rho against cancellation near
+        # convergence
+        eps = torch.finfo(state.fx.dtype).eps
+        reg = 1e3 * eps * torch.clamp(torch.abs(state.fx), min=1.0)
+        rho = (state.fx - f_new + reg) / (model_decrease + reg)
 
     accept = rho > _RHO_PRIME
     if shrink_only:
@@ -304,22 +324,28 @@ def _initial_state(
     residual_control: bool = False,
 ) -> RTRState:
     """Cost, gradients and Weingarten correction at Y0 from one matvec (in
-    inner precision with inner control matvecs)."""
+    inner precision with inner control matvecs), or, under residual_control,
+    from one pass of the residual form in the control precision (fx is then
+    in the complete-residual convention: a constant away from 0.5 <X Q, X> +
+    <X, G>, which cancels in every decision)."""
     if residual_control:
-        raise NotImplementedError(
-            "residual_control needs the residual form, not ported yet"
-        )
-    if qd_inner is not None and inner_control_matvecs:
-        qm = quadratic.q_matvec(qd_inner, Y0.to(qd_inner.diag.dtype))
-        qm = qm.to(Y0.dtype)
+        qd_c = qd if qd_inner is None else qd_inner
+        fx, eg = quadratic.cost_grad_residual(
+            qd_c.res, Y0.to(qd_c.diag.dtype))
+        fx, eg = fx.to(Y0.dtype), eg.to(Y0.dtype)
     else:
-        qm = quadratic.q_matvec(qd, Y0)
-    eg = qm + qd.G
+        if qd_inner is not None and inner_control_matvecs:
+            qm = quadratic.q_matvec(qd_inner, Y0.to(qd_inner.diag.dtype))
+            qm = qm.to(Y0.dtype)
+        else:
+            qm = quadratic.q_matvec(qd, Y0)
+        eg = qm + qd.G
+        fx = 0.5 * _dot(qm, Y0) + _dot(Y0, qd.G)
     grad = lifted.proj_tangent(Y0, eg)
     dev, batch = Y0.device, Y0.shape[:-3]
     return RTRState(
         X=Y0,
-        fx=0.5 * _dot(qm, Y0) + _dot(Y0, qd.G),
+        fx=fx,
         grad=grad,
         gnorm=torch.sqrt(_dot(grad, grad)),
         S=quadratic.hess_correction(Y0, eg),
@@ -366,16 +392,22 @@ def rtr_solve(
     qd.to(inner_dtype), so with CSR plans attached its matvecs go through the
     fused edge kernel. inner_data: that copy ready-made (qd.to(inner_dtype),
     G included), for a caller that solves the same data round after round
-    and so casts it once. residual_control is not ported yet and raises.
+    and so casts it once.
+
+    residual_control=True (needs qd.res, quadratic.build_residual_data, and
+    in inner_data too where that is given): the control's cost differences
+    come from the cancellation-free identity and its gradients from the
+    residual form, both accurate to ~eps * residual in the control dtype
+    (_rtr_iteration), so a float32 control reaches gradient norms that the
+    matvec form loses to cancellation.
 
     Y0 of shape (A, n, r, dh) solves a batch (module docstring)."""
-    if residual_control:
-        raise NotImplementedError(
-            "residual_control needs the residual form, not ported yet"
-        )
+    if residual_control and qd.res is None:
+        raise ValueError("residual_control needs qd.res "
+                         "(quadratic.build_residual_data)")
     qd_inner = _inner_copy(qd, Y0, inner_dtype, inner_data)
     state0 = _initial_state(qd, Y0, initial_radius, qd_inner,
-                            inner_control_matvecs)
+                            inner_control_matvecs, residual_control)
     skip = state0.gnorm < gradnorm_tol
 
     def step(state, max_radius, shrink_only):
@@ -383,7 +415,7 @@ def rtr_solve(
             qd, state, max_inner, max_radius, shrink_only, qd_inner=qd_inner,
             exact_inner_hessian=exact_inner_hessian,
             inner_control_matvecs=inner_control_matvecs,
-            tcg_unroll=tcg_unroll,
+            residual_control=residual_control, tcg_unroll=tcg_unroll,
         )
 
     batched = Y0.dim() == 4
@@ -439,8 +471,8 @@ def initial_cost_gradnorm(
     inner_data: Optional[QuadraticData] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cost and Riemannian gradient norm at Y0, exactly as rtr_solve's
-    f_init/gnorm_init under the same flags (one matvec, no solve); (A,)
-    each for a batch."""
+    f_init/gnorm_init under the same flags (one matvec or one pass of the
+    residual form, no solve); (A,) each for a batch."""
     st = _initial_state(qd, Y0, 0.0,
                         _inner_copy(qd, Y0, inner_dtype, inner_data),
                         inner_control_matvecs, residual_control)
@@ -505,19 +537,91 @@ def rtr_solve_auto(
     )
 
 
+@highest
+def rgd_step(
+    qd: QuadraticData,
+    Y0: torch.Tensor,
+    stepsize: float,
+    use_preconditioner: bool = True,
+) -> torch.Tensor:
+    """One preconditioned Riemannian gradient step with retraction
+    (reference: QuadraticOptimizer.cpp:110-137)."""
+    g = quadratic.rie_grad(qd, Y0)
+    direction = quadratic.apply_precond(qd, Y0, g) if use_preconditioner else g
+    return lifted.retract(Y0, -stepsize * direction)
+
+
+@highest
+def rsd_line_search(
+    qd: QuadraticData,
+    Y0: torch.Tensor,
+    gradnorm_tol: float = 1e-2,
+    max_iterations: int = 10,
+    initial_step: float = 1.0,
+    backtrack: float = 0.5,
+    armijo: float = 1e-4,
+    max_backtracks: int = 20,
+) -> Tuple[torch.Tensor, RTRStats]:
+    """Riemannian steepest descent with Armijo backtracking line search: the
+    counterpart of the reference's (unused) ROPTLIB::RSD path
+    (QuadraticOptimizer.cpp:139-160: tol 1e-2, 10 iterations). One problem
+    (Y0 of shape (n, r, dh)); both loops read their condition on the host,
+    one sync per trial step."""
+    X = Y0
+    fx = f_init = quadratic.cost(qd, X)
+    grad = quadratic.rie_grad(qd, X)
+    gnorm = g_init = lifted.norm(grad)
+    it = 0
+    while it < max_iterations and float(gnorm) >= gradnorm_tol:
+        t = initial_step
+        X_new = lifted.retract(X, -t * grad)
+        f_new = quadratic.cost(qd, X_new)
+        k = 0
+        while k < max_backtracks and \
+                not bool(f_new <= fx - armijo * t * gnorm**2):
+            t = t * backtrack
+            X_new = lifted.retract(X, -t * grad)
+            f_new = quadratic.cost(qd, X_new)
+            k += 1
+        if bool(f_new < fx):
+            X, fx = X_new, f_new
+        grad = quadratic.rie_grad(qd, X)
+        gnorm = lifted.norm(grad)
+        it += 1
+    dev = Y0.device
+    stats = RTRStats(
+        f_init=f_init, gnorm_init=g_init, f_opt=fx, gnorm_opt=gnorm,
+        iterations=it, accepted=torch.ones((), dtype=torch.bool, device=dev),
+        tcg_iters=torch.zeros((), dtype=torch.int64, device=dev),
+    )
+    return X, stats
+
+
 def optimize(
     qd: QuadraticData, Y0: torch.Tensor, params: ROptParameters
 ) -> Tuple[torch.Tensor, RTRStats]:
     """Dispatch mirroring QuadraticOptimizer::optimize (reference:
-    QuadraticOptimizer.cpp:26-48). Only the RTR method is ported."""
-    if params.method != ROptMethod.RTR:
-        raise NotImplementedError(f"{params.method} is not ported yet")
-    return rtr_solve(
-        qd,
-        Y0,
-        gradnorm_tol=params.gradnorm_tol,
-        initial_radius=params.RTR_initial_radius,
-        max_iterations=params.RTR_iterations,
-        max_inner=params.RTR_tCG_iterations,
-        shrink_until_accept=(params.RTR_iterations == 1),
+    QuadraticOptimizer.cpp:26-48): the trust-region solve, or one RGD
+    step."""
+    if params.method == ROptMethod.RTR:
+        return rtr_solve(
+            qd,
+            Y0,
+            gradnorm_tol=params.gradnorm_tol,
+            initial_radius=params.RTR_initial_radius,
+            max_iterations=params.RTR_iterations,
+            max_inner=params.RTR_tCG_iterations,
+            shrink_until_accept=(params.RTR_iterations == 1),
+        )
+    Y = rgd_step(qd, Y0, params.RGD_stepsize, params.RGD_use_preconditioner)
+    dev = Y0.device
+    stats = RTRStats(
+        f_init=quadratic.cost(qd, Y0),
+        gnorm_init=quadratic.rie_grad_norm(qd, Y0),
+        f_opt=quadratic.cost(qd, Y),
+        gnorm_opt=quadratic.rie_grad_norm(qd, Y),
+        iterations=1,
+        accepted=torch.ones((), dtype=torch.bool, device=dev),
+        tcg_iters=torch.zeros((), dtype=torch.int64, device=dev),
     )
+    return Y, stats

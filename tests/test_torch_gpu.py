@@ -242,3 +242,132 @@ def test_rtr_solve_auto_escalates_on_card(cuda, monkeypatch):
     assert p_cpu == p_gpu == ["jacobi", "banded"]
     assert l_cpu == 0 and l_gpu > 0 and g_gpu < 1e-2
     np.testing.assert_allclose(f_gpu, f_cpu, rtol=1e-6)
+
+
+def test_residual_control_on_card_matches_cpu(cuda):
+    """rtr_solve under the residual-form control (float32 tCG and control)
+    at city2d(600) with the CSR plans forced on: the card launches the fused
+    edge kernel once per tCG iteration and lands on the CPU's float64 cost;
+    the residual form itself agrees with the CPU's to float64 rounding (its
+    scatter-adds are atomics on the card)."""
+    edges, n, _ = datasets.synthesize_city2d(600, seed=0)
+    d, r = 2, 5
+    out = {}
+    for dev in ("cpu", cuda):
+        problem = quadratic.from_private_measurements(edges, n=n, d=d, device=dev)
+        T = chordal.chordal_initialization_arrays(edges, n=n, device=dev)
+        X0 = torch.einsum(
+            "rd,nde->nre", lifted.fixed_stiefel_variable(d, r, device=dev), T)
+        nbr = torch.zeros((1, r, d + 1), dtype=torch.float64, device=dev)
+        qd = quadratic.build_quadratic_data(problem, nbr, r=r)
+        qd = dataclasses.replace(
+            qd, res=quadratic.build_residual_data(problem, nbr))
+        qd = quadratic.attach_csr_plans(qd, min_edges=0)
+        f0, g0 = quadratic.cost_grad_residual(qd.res, X0)
+        before = edge_matvec.LAUNCHES
+        X, stats = rtr.rtr_solve(qd, X0, 1e-2, 100.0, max_iterations=100,
+                                 max_inner=200, inner_dtype=torch.float32,
+                                 residual_control=True)
+        out[str(dev)] = (2 * float(quadratic.cost(qd, X)),
+                         float(quadratic.rie_grad_norm(qd, X)),
+                         edge_matvec.LAUNCHES - before, int(stats.tcg_iters),
+                         float(f0), g0.cpu())
+    f_cpu, _, l_cpu, _, f0_cpu, g0_cpu = out["cpu"]
+    f_gpu, g_gpu, l_gpu, tcg, f0_gpu, g0_gpu = out["cuda"]
+    assert l_cpu == 0 and l_gpu >= tcg > 0 and g_gpu < 1e-2
+    np.testing.assert_allclose(f_gpu, f_cpu, rtol=1e-6)
+    np.testing.assert_allclose(f0_gpu, f0_cpu, rtol=1e-12)
+    torch.testing.assert_close(g0_gpu, g0_cpu, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "async"])
+def test_randomized_modes_on_card_match_cpu(cuda, mode, tmp_path):
+    """Four rounds with injected draws on the card against the CPU's, the
+    card's own draw equal to the CPU's (the generator lives on the CPU), and
+    a checkpoint written on the card loading on either device."""
+    from dpgo_tpu_torch.parallel import spmd
+
+    draws = {"uniform": [2, 0, 3, 1],
+             "async": [[True, False, True, True], [False, True, False, False],
+                       [True, True, False, True], [False, False, True, True]]}
+    out = {}
+    for dev in ("cpu", cuda):
+        problem, state = _grid_team(dev)
+        cfg = spmd.SPMDConfig(mode=mode, acceleration=False,
+                              rtr_gradnorm_tol=1e-3)
+        s, m, _ = spmd.make_run_fn(problem, cfg, device=dev,
+                                   selections=draws[mode])(state, 4, 0.0)
+        own, _, _ = spmd.make_run_fn(problem, cfg, device=dev)(state, 4, 0.0)
+        out[str(dev)] = (s, m, own)
+    (sc, mc, oc), (sg, mg, og) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(sg.X.cpu(), sc.X, rtol=0, atol=1e-9)
+    torch.testing.assert_close(og.X.cpu(), oc.X, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(float(mg.cost), float(mc.cost), rtol=1e-9)
+    path = str(tmp_path / "card.npz")
+    spmd.save_state(sg, path)
+    for dev in ("cpu", cuda):
+        back = spmd.load_state(path, device=dev)
+        assert back.X.device.type == torch.device(dev).type
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(back, sg))
+    assert spmd.load_state(path).X.is_cuda  # the default is the card
+
+
+def test_gnc_on_card_matches_cpu(cuda):
+    """run_rbcd_gnc on city2d(200) with 10% planted outliers in 2 agents:
+    the card rejects exactly the planted edges, as the CPU does, with the
+    same weights to 1e-8."""
+    from dpgo_tpu_torch.parallel import spmd
+    from dpgo_tpu_torch.solvers.pgo import chordal_initialization
+
+    edges, n, _ = datasets.synthesize_city2d(200, seed=3)
+    meas, planted = datasets.plant_outliers(edges.to_measurements(), n,
+                                            frac=0.10, seed=5)
+    cfg = spmd.SPMDConfig(mode="all", acceleration=False, rtr_iterations=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        problem, ranges = spmd.build_spmd_problem(meas, n, 2, 3, device=dev)
+        T = chordal_initialization(meas, device=dev)
+        X0 = torch.einsum("rd,nde->nre",
+                          lifted.fixed_stiefel_variable(2, 3, device=dev), T)
+        state = spmd.initial_state(problem, X0, ranges, device=dev)
+        p_out, _, hist = spmd.run_rbcd_gnc(
+            problem, state, cfg, barc=5.0, num_weight_updates=8,
+            inner_rounds=15, device=dev)
+        assert p_out.priv_weight.device.type == torch.device(dev).type
+        out[str(dev)] = (spmd.edge_weight_table(p_out, ranges), hist)
+    (tc, hc), (tg, hg) = out["cpu"], out["cuda"]
+    assert [h["rounds"] for h in hc] == [h["rounds"] for h in hg]
+    assert [e["pair"] for e in tc] == [e["pair"] for e in tg]
+    np.testing.assert_allclose([e["weight"] for e in tg],
+                               [e["weight"] for e in tc], rtol=0, atol=1e-8)
+    rejected = {e["pair"] for e in tg if not e["fixed"] and e["weight"] < 1e-6}
+    assert rejected == planted
+
+
+def test_robust_pgo_and_odometry_on_card_match_cpu(cuda):
+    """solve_robust_pgo on grid3d(64) with planted outliers, and the
+    odometry chain of city2d(5000): the card against the CPU."""
+    from dpgo_tpu_torch.solvers import pgo
+    from dpgo_tpu_torch.types import ROptParameters
+
+    edges, n, _ = datasets.synthesize_grid3d(64, seed=0)
+    meas, planted = datasets.plant_outliers(edges.to_measurements(), n,
+                                            frac=0.15, seed=1)
+    params = pgo.SolveRobustPGOParams(opt_params=ROptParameters(
+        gradnorm_tol=1e-6, RTR_iterations=30, RTR_tCG_iterations=100))
+    Tc, oc = pgo.solve_robust_pgo(meas, params, device="cpu")
+    Tg, og = pgo.solve_robust_pgo(meas, params)  # the default is the card
+    assert Tg.is_cuda
+    np.testing.assert_allclose([m.weight for m in og],
+                               [m.weight for m in oc], rtol=0, atol=1e-8)
+    assert planted <= {(m.p1, m.p2) for m in og if m.weight < 1e-8}
+    torch.testing.assert_close(Tg.cpu(), Tc, rtol=0, atol=1e-6)
+    chain, nc, _ = datasets.synthesize_city2d(5000, seed=0)
+    keep = np.nonzero(chain.p2 - chain.p1 == 1)[0]
+    odo = dataclasses.replace(chain, **{
+        f.name: getattr(chain, f.name)[keep]
+        for f in dataclasses.fields(chain)})
+    a = chordal.odometry_initialization_arrays(odo, n=nc, device="cpu")
+    b = chordal.odometry_initialization_arrays(odo, n=nc, device=cuda)
+    torch.testing.assert_close(b.cpu(), a, rtol=0,
+                               atol=1e-10 * float(a.abs().max()))

@@ -174,3 +174,67 @@ def test_projections_ignore_tf32():
         torch.backends.cuda.matmul.allow_tf32 = before
     assert seen and not any(seen)
     assert torch.equal(got, ref)
+
+
+def test_flat_layout_matches_jax():
+    rng = np.random.default_rng(21)
+    X = rng.standard_normal((7, 5, 4))
+    flat = tl.to_flat(_t(X))
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jl.to_flat(jnp.asarray(X))))
+    np.testing.assert_array_equal(tl.from_flat(flat, 7, 3).numpy(), X)
+    np.testing.assert_array_equal(
+        tl.from_flat(flat, 7, 3).numpy(),
+        np.asarray(jl.from_flat(jnp.asarray(flat.numpy()), 7, 3)))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_se_utilities_match_jax(d):
+    """se_inverse, se_compose, se_homogeneous, se_identity and
+    average_translation_distance agree to 1e-12; inverse and compose give the
+    identity."""
+    rng = np.random.default_rng(22 + d)
+    def poses(k):
+        R = np.linalg.qr(rng.standard_normal((k, d, d)))[0]
+        return np.concatenate([R, rng.standard_normal((k, d, 1))], axis=-1)
+    Ta, Tb = poses(9), poses(9)
+    pairs = [
+        (jl.se_inverse(jnp.asarray(Ta)), tl.se_inverse(_t(Ta))),
+        (jl.se_compose(jnp.asarray(Ta), jnp.asarray(Tb)),
+         tl.se_compose(_t(Ta), _t(Tb))),
+        (jl.se_homogeneous(jnp.asarray(Ta)), tl.se_homogeneous(_t(Ta))),
+        (jl.se_identity(4, d), tl.se_identity(4, d, device="cpu")),
+        (jl.average_translation_distance(jnp.asarray(Ta), jnp.asarray(Tb)),
+         tl.average_translation_distance(_t(Ta), _t(Tb))),
+    ]
+    for ref, got in pairs:
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                                   atol=RTOL)
+    eye = tl.se_compose(_t(Ta), tl.se_inverse(_t(Ta)))
+    np.testing.assert_allclose(eye.numpy(),
+                               tl.se_identity(9, d, device="cpu").numpy(),
+                               atol=1e-12)
+
+
+def test_random_stiefel_and_checks():
+    """random_stiefel draws from the generator it is given (same seed, same
+    point; the JAX package's key gives another point, both on the manifold);
+    check_stiefel and check_rotation agree with the JAX package's."""
+    def draw(seed):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return tl.random_stiefel(g, 5, 3)
+    Y = draw(0)
+    assert Y.shape == (5, 3) and Y.dtype == torch.float64
+    assert torch.equal(Y, draw(0)) and not torch.equal(Y, draw(1))
+    assert tl.check_stiefel(Y) and jl.check_stiefel(Y.numpy())
+    import jax
+    assert tl.check_stiefel(np.asarray(jl.random_stiefel(jax.random.PRNGKey(0), 5, 3)))
+    assert not tl.check_stiefel(1.1 * Y) and not jl.check_stiefel(1.1 * Y.numpy())
+    rng = np.random.default_rng(23)
+    Q = np.linalg.qr(rng.standard_normal((6, 3, 3)))[0]
+    Q[np.linalg.det(Q) < 0, :, 0] *= -1
+    assert tl.check_rotation(_t(Q)) and jl.check_rotation(Q)
+    Q[2, :, 0] *= -1  # a reflection: orthonormal, det -1
+    assert tl.check_stiefel(_t(Q)) and not tl.check_rotation(_t(Q))
+    assert not jl.check_rotation(Q)

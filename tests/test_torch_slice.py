@@ -106,7 +106,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "dpgo_tpu_torch.datasets, dpgo_tpu_torch.quadratic, "
         "dpgo_tpu_torch.ops.segsum, dpgo_tpu_torch.ops.edge_matvec, "
         "dpgo_tpu_torch.ops._build, "
-        "dpgo_tpu_torch.solvers.rtr, dpgo_tpu_torch.solvers.chordal; "
+        "dpgo_tpu_torch.solvers.rtr, dpgo_tpu_torch.solvers.chordal, "
+        "dpgo_tpu_torch.solvers.pgo, dpgo_tpu_torch.parallel.spmd, "
+        "dpgo_tpu_torch.robust, dpgo_tpu_torch.log, dpgo_tpu_torch.types; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'dpgo_tpu' or m.startswith('dpgo_tpu.')]; "
         "assert not bad, bad"
