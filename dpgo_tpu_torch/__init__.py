@@ -18,7 +18,10 @@ Ported so far:
     elastic membership, checkpoints) on one device, the agents a leading
     batch axis, with the graph partition of parallel/partition.py;
   * the robust costs (robust.py) with distributed GNC (run_rbcd_gnc) and the
-    centralized GNC solve (solve_robust_pgo).
+    centralized GNC solve (solve_robust_pgo);
+  * the anchored delta engine (parallel/delta.py: run_delta_certified,
+    run_delta_gnc, host_certify) and the dual certificate with the
+    Riemannian staircase (solvers/certify.py).
 
 Every function that makes tensors from host data takes a `device`, and
 nothing here sets a global default device. Random draws come from an
@@ -57,6 +60,10 @@ from dpgo_tpu_torch.solvers.pgo import (
     solve_pgo,
     solve_robust_pgo,
 )
+from dpgo_tpu_torch.solvers.certify import (
+    min_eig_certificate,
+    solve_pgo_staircase,
+)
 from dpgo_tpu_torch.solvers.rtr import rtr_solve_auto
 
 __all__ = [
@@ -80,6 +87,7 @@ __all__ = [
     "make_run_fn",
     "make_step_fn",
     "make_two_phase_run_fn",
+    "min_eig_certificate",
     "odometry_initialization",
     "read_g2o_file",
     "rtr_solve_auto",
@@ -87,6 +95,7 @@ __all__ = [
     "run_rbcd_spmd",
     "save_state",
     "solve_pgo",
+    "solve_pgo_staircase",
     "solve_robust_pgo",
 ]
 

@@ -7,7 +7,10 @@ band_offsets; for an SPMDProblem also num_agents, n_max, r) as a dict, and
 get the port's object with the same values in the same edge order (the band
 ordering that plan_bands chose included). That hands both packages the
 identical problem: also a team that the JAX package's GNC reweighted
-(spmd_problem_from_numpy on its arrays). Checkpoints need no conversion:
+(spmd_problem_from_numpy on its arrays). The delta engine's DeltaRef and
+DeltaState come over the same way (delta_ref_from_numpy,
+delta_state_from_numpy), so both packages start from the same anchor.
+Checkpoints need no conversion:
 parallel.spmd.save_state and load_state share the JAX package's .npz layout.
 This module imports neither jax nor dpgo_tpu.
 """
@@ -20,6 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from dpgo_tpu_torch.parallel.delta import DeltaRef, DeltaState
 from dpgo_tpu_torch.parallel.spmd import SPMDProblem, SPMDState
 from dpgo_tpu_torch.quadratic import LocalProblem, QuadraticData, ResidualData
 
@@ -112,3 +116,24 @@ def spmd_state_from_numpy(
     it, cost_X, do_restart)."""
     return SPMDState(**{k: _tensor(k, v, device, dtype)
                         for k, v in fields.items()})
+
+
+def delta_ref_from_numpy(
+    fields: Mapping[str, np.ndarray], device, dtype=torch.float32,
+) -> DeltaRef:
+    """The port's DeltaRef from a JAX DeltaRef's arrays (X_ref,
+    res_ref_priv, res_ref_shared, M_ref)."""
+    return DeltaRef(**{k: _tensor(k, v, device, dtype)
+                       for k, v in fields.items()})
+
+
+def delta_state_from_numpy(
+    fields: Mapping[str, np.ndarray], device, dtype=torch.float32,
+) -> DeltaState:
+    """The port's DeltaState from a JAX DeltaState's arrays (D, DY, DV, ACC,
+    gamma, it, prev_cost, do_restart); the round counter becomes the host
+    integer the port keeps."""
+    f = dict(fields)
+    it = int(np.asarray(f.pop("it")))
+    return DeltaState(it=it, **{k: _tensor(k, v, device, dtype)
+                                for k, v in f.items()})

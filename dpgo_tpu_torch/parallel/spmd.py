@@ -153,14 +153,16 @@ class RoundMetrics(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class SPMDConfig:
     """The JAX package's SPMDConfig with its defaults: every update mode,
-    the randomized modes' async_rate and seed, and the residual-form control
-    included. Still left out: restart_scheme, which only the delta engine
-    (not ported yet) reads; and the precision knobs: the port computes every
-    float32 product in full float32 (rtr_tcg_precision 'highest'),
-    recomputes no inner Hessian in full precision (rtr_exact_inner_hessian
-    False), restarts on any cost increase (restart_cost_rtol 0) and
-    projects in mixed mode with the float32 Newton-Schulz bulk and a
-    full-precision polish (ns_projection_dtype None)."""
+    the randomized modes' async_rate and seed, the adaptive restart's
+    restart_cost_rtol and restart_scheme, and the residual-form control
+    included. rtr_tcg_precision is accepted (None, 'high' or 'highest') and
+    changes nothing: the JAX package's None and 'high' pick the TPU's
+    bf16-pass matmul levels, which a CUDA card does not have, so the port
+    computes every float32 product in full float32 whatever the value (the
+    JAX package's 'highest'). Still left out, with the value the port
+    behaves as: rtr_exact_inner_hessian (False) and ns_projection_dtype
+    (None: the mixed-mode projection has a float32 Newton-Schulz bulk and a
+    full-precision polish)."""
 
     mode: str = "all"  # 'all' | 'greedy' | 'uniform' | 'async'
     acceleration: bool = True
@@ -177,6 +179,15 @@ class SPMDConfig:
     # adaptive (function-scheme) restart on top of the periodic schedule:
     # restart whenever the global objective at X increased over the round
     adaptive_restart: bool = False
+    # noise margin of the adaptive trigger: restart only when the new cost
+    # exceeds the last one by this relative amount (0: any increase)
+    restart_cost_rtol: float = 0.0
+    # the adaptive-restart signal of the delta engine (parallel/delta.py;
+    # the plain engine always compares costs): 'cost' (the round objective
+    # increased), 'exact' (the same comparison computed cancellation-free in
+    # delta space, one extra residual-form matvec per round) or 'gradient'
+    # (<grad f(Y), x' - x> > 0)
+    restart_scheme: str = "cost"
     # team size in the Nesterov gamma/alpha recursions; None = num_agents
     nesterov_n: Optional[int] = None
     gradnorm_tol: float = 1e-2
@@ -191,6 +202,9 @@ class SPMDConfig:
     # mixed mode: trust-region control matvecs in inner precision too
     # (make_two_phase_run_fn runs the bulk of a solve so)
     rtr_inner_control_matvecs: bool = False
+    # tCG matmul precision of the JAX package (None, 'high', 'highest');
+    # every value computes in full float32 here (class docstring)
+    rtr_tcg_precision: Optional[str] = None
     # Residual-form trust-region control (quadratic.cost_grad_residual): the
     # control gradient and cost are evaluated cancellation-free per edge, so
     # the control dtype's eps applies to the residual rather than to the
@@ -730,7 +744,8 @@ def _round_body(team: _Team, cfg: SPMDConfig, state: SPMDState, sel: int,
             # objective at the new X increased over the last one
             cost_new = team_cost(
                 X_upd, resolve_nbr(_gather_pub(X_upd, pr.pub_idx)))
-            do_restart_next = cost_new > state.cost_X
+            do_restart_next = cost_new > state.cost_X * (
+                1 + cfg.restart_cost_rtol)
             cost_X_next = cost_new
         else:
             do_restart_next = torch.zeros_like(state.do_restart)
@@ -816,6 +831,12 @@ def _first_selection(cfg: SPMDConfig) -> int:
 def _validate_cfg(cfg: SPMDConfig) -> None:
     if cfg.mode not in ("all", "greedy", "uniform", "async"):
         raise ValueError(f"unknown SPMD mode {cfg.mode!r}")
+    if cfg.restart_scheme not in ("cost", "exact", "gradient"):
+        # a typo must not fall through to the delta engine's 'cost' branch
+        raise ValueError(f"unknown restart_scheme {cfg.restart_scheme!r}")
+    if cfg.rtr_tcg_precision not in (None, "high", "highest"):
+        raise ValueError(
+            f"unknown rtr_tcg_precision {cfg.rtr_tcg_precision!r}")
     if cfg.mode == "async" and cfg.acceleration:
         # the reference forbids acceleration in asynchronous mode
         # (PGOAgent.cpp:477): the Nesterov recursions assume synchronized

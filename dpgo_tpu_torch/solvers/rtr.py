@@ -51,6 +51,9 @@ _KAPPA = 0.1
 _RHO_PRIME = 0.1
 _MAX_SHRINKS = 10  # QuadraticOptimizer.cpp:90 ("total_steps > 10")
 
+# host reads of the tCG's `done` flag (caps above tcg_unroll only)
+TCG_SYNCS = 0
+
 
 class TCGResult(NamedTuple):
     eta: torch.Tensor
@@ -187,8 +190,10 @@ def _tcg(
         for _ in range(max_inner):
             c = _freeze(~c[-2], body(c), c)
     else:
+        global TCG_SYNCS
         for _ in range(max_inner):
             done = c[-2]
+            TCG_SYNCS += 1
             if bool(done.all()):
                 break
             c = body(c) if not batch else _freeze(~done, body(c), c)

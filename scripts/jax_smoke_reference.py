@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Reference values of chip_smoke.py's residual, gnc, modes and robust phases
-from the JAX package on the CPU in float64.
+"""Reference values of chip_smoke.py's residual, gnc, modes, robust, delta,
+delta-gnc and certify phases from the JAX package on the CPU (x64 on).
 
     JAX_PLATFORMS=cpu python3 scripts/jax_smoke_reference.py [phase ...]
 
 Each phase prints one JSON line; chip_smoke.py holds the port to these
 values (they are written into it as literals). Phases: residual, gnc, modes,
-robust (default: all four).
+robust, delta, delta_gnc, certify (default: all).
 """
 
 import dataclasses
@@ -27,7 +27,8 @@ import numpy as np  # noqa: E402
 
 from dpgo_tpu import datasets, quadratic  # noqa: E402
 from dpgo_tpu.ops import lifted  # noqa: E402
-from dpgo_tpu.parallel import spmd  # noqa: E402
+from dpgo_tpu.parallel import delta, spmd  # noqa: E402
+from dpgo_tpu.solvers import certify as certify_mod  # noqa: E402
 from dpgo_tpu.solvers import chordal, pgo, rtr  # noqa: E402
 
 R = 5
@@ -154,12 +155,130 @@ def robust():
     }
 
 
+def stacked(problem, ranges, X0, d):
+    """Global (n, r, dh) -> stacked float64 (N, n_max, r, dh), padded rows
+    identity-lifted (initial_state's convention, kept in float64)."""
+    Xs = np.zeros((problem.num_agents, problem.n_max, R, d + 1))
+    Xs[:] = np.asarray(lifted.identity_lifted(problem.n_max, R, d), np.float64)
+    for a, (s, e) in enumerate(ranges):
+        Xs[a, : e - s] = X0[s:e]
+    return Xs
+
+
+def unstacked(Xs, ranges, n):
+    X = np.zeros((n,) + Xs.shape[2:])
+    for a, (s, e) in enumerate(ranges):
+        X[s:e] = Xs[a, : e - s]
+    return X
+
+
+# scale_bench.py's certified schedule (its tCG cap 20 for the grid world)
+DELTA_CFG = dict(
+    mode="all", acceleration=True, rtr_iterations=1, adaptive_restart=True,
+    restart_interval=10**6, nesterov_n=5, rtr_tcg_iterations=20,
+    restart_scheme="exact", rtr_residual_control=True,
+    rtr_tcg_precision="high")
+
+
+def delta_phase(agents=8):
+    """The delta engine on the rbcd phases' team (grid3d-10k, seed 1, 8
+    agents, float32 problem) from the lifted float64 chordal init, then
+    certify_solution on its iterate."""
+    edges, n, _ = datasets.synthesize_grid3d(10000, seed=1)
+    meas = edges.to_measurements()
+    T = pgo.chordal_initialization(meas)
+    problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=agents, r=R,
+                                              dtype=jnp.float32)
+    Xs = stacked(problem, ranges, lift(T, 3), 3)
+    cfg = spmd.SPMDConfig(rtr_gradnorm_tol=1e-2 / (2 * np.sqrt(agents)),
+                          **DELTA_CFG)
+    t0 = time.perf_counter()
+    X, info = delta.run_delta_certified(problem, Xs, cfg, tol=0.9e-2,
+                                        chunk=25, max_rounds=2000,
+                                        reanchor_every=25)
+    seconds = time.perf_counter() - t0
+    cost, gn = delta.host_certify(problem, X)
+    t0 = time.perf_counter()
+    cert = certify_mod.certify_solution(meas, jnp.asarray(
+        unstacked(X, ranges, n)), k=64, eta=1e-6, precond="auto")
+    return {
+        "rounds": info["rounds"], "device_gradnorm": info["device_gradnorm"],
+        "host_cost": cost, "host_gradnorm": gn, "seconds": seconds,
+        "certified": cert.certified, "lambda_min": cert.lambda_min,
+        "lambda_min_lower": cert.lambda_min_lower,
+        "stationarity": cert.stationarity,
+        "eig_residual": cert.eig_residual,
+        "certify_seconds": time.perf_counter() - t0,
+    }
+
+
+def delta_gnc(agents=8):
+    """run_delta_gnc with the gnc phase's graph and settings, then
+    bench.py's certified polish on the reweighted problem."""
+    edges, n, _ = datasets.synthesize_city2d(10000, seed=0)
+    clean = edges.to_measurements()
+    meas, planted = datasets.plant_outliers(clean, n, frac=0.15, seed=1)
+    T = pgo.chordal_initialization(meas)
+    problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=agents, r=R,
+                                              dtype=jnp.float32)
+    Xs = stacked(problem, ranges, lift(T, 2), 2)
+    cfg = spmd.SPMDConfig(mode="all", acceleration=False, rtr_iterations=1)
+    t0 = time.perf_counter()
+    problem_out, _, _, X, hist = delta.run_delta_gnc(
+        problem, Xs, cfg, barc=5.0, num_weight_updates=10, inner_rounds=20)
+    gnc_s = time.perf_counter() - t0
+    by_pair = {e["pair"]: e["weight"]
+               for e in spmd.edge_weight_table(problem_out, ranges)
+               if not e["fixed"]}
+    rejected = {p for p, w in by_pair.items() if w < 1e-6}
+    # bench.py's polish, with scale_bench.py's city schedule (tCG cap 3,
+    # restart_scheme 'exact', nesterov_n 5, no periodic restart): with
+    # bench.py's own settings (tCG cap 50, nesterov_n = team size, restart
+    # every 30 rounds) 8 agents leave the host gradnorm at 1.06 after 1,000
+    # rounds
+    cfg_cert = spmd.SPMDConfig(
+        rtr_gradnorm_tol=1e-2 / (2 * np.sqrt(agents)),
+        **dict(DELTA_CFG, rtr_tcg_iterations=3))
+    t0 = time.perf_counter()
+    X_final, info = delta.run_delta_certified(
+        problem_out, X, cfg_cert, tol=1e-2, chunk=25, max_rounds=1000)
+    polish_s = time.perf_counter() - t0
+    _, gn = delta.host_certify(problem_out, X_final)
+    problem_clean, _ = spmd.build_spmd_problem(clean, n, num_agents=agents,
+                                               r=R)
+    cost_clean, gn_clean = delta.host_certify(problem_clean, X_final)
+    return {
+        "planted": len(planted), "rejected": len(rejected),
+        "missed": sorted(planted - rejected),
+        "false_positives": sorted(rejected - planted),
+        "rounds": [h["rounds"] for h in hist],
+        "costs": [h["cost"] for h in hist], "final_mu": hist[-1]["mu"],
+        "gnc_seconds": gnc_s, "polish_rounds": info["rounds"],
+        "polish_gradnorm": gn, "polish_seconds": polish_s,
+        "clean_cost": cost_clean, "clean_gradnorm": gn_clean,
+    }
+
+
+def certify():
+    """solve_pgo_staircase on the auto phase's graph (grid3d-3375, seed 0)
+    from r0 = 3 (d) at gradnorm_tol 1e-6."""
+    edges, n, _ = datasets.synthesize_grid3d(3375, seed=0)
+    meas = edges.to_measurements()
+    t0 = time.perf_counter()
+    res = certify_mod.solve_pgo_staircase(meas, r0=3, gradnorm_tol=1e-6)
+    return {
+        "r": res.r, "certified": res.certified, "cost": res.cost,
+        "lambda_min": res.lambda_min, "gradnorm": res.gradnorm,
+        "history": list(res.history), "seconds": time.perf_counter() - t0,
+    }
+
+
 def main():
-    names = sys.argv[1:] or ["residual", "gnc", "modes", "robust"]
-    for name in names:
-        fn = {"residual": residual, "gnc": gnc, "modes": modes,
-              "robust": robust}[name]
-        print(json.dumps({name: fn()}), flush=True)
+    phases = {"residual": residual, "gnc": gnc, "modes": modes,
+              "robust": robust, "delta": delta_phase, "delta_gnc": delta_gnc,
+              "certify": certify}
+    for name in sys.argv[1:] or list(phases):
+        print(json.dumps({name: phases[name]()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -371,3 +371,79 @@ def test_robust_pgo_and_odometry_on_card_match_cpu(cuda):
     b = chordal.odometry_initialization_arrays(odo, n=nc, device=cuda)
     torch.testing.assert_close(b.cpu(), a, rtol=0,
                                atol=1e-10 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["grid3d", "city2d"])
+def test_delta_rounds_on_card_match_cpu(cuda, kind):
+    """Six delta rounds (float32 problem, 'exact' restart, a re-anchor
+    after round 3) from the same float64 anchor on the card and on the
+    CPU: the metrics within 1e-4 relative (the scatter-adds are atomics on
+    the card) and no kernel launch (no CSR plans on this path)."""
+    from dpgo_tpu_torch.parallel import delta, spmd
+
+    synth = datasets.synthesize_grid3d if kind == "grid3d" \
+        else datasets.synthesize_city2d
+    edges, n, _ = synth(216 if kind == "grid3d" else 600, seed=0)
+    meas = edges.to_measurements()
+    d = edges.d
+    T = chordal.chordal_initialization_arrays(edges, n=n, device="cpu")
+    X0 = torch.einsum("rd,nde->nre",
+                      lifted.fixed_stiefel_variable(d, 5, device="cpu"), T)
+    cfg = spmd.SPMDConfig(acceleration=True, adaptive_restart=True,
+                          restart_interval=10**6, nesterov_n=5,
+                          rtr_tcg_iterations=20, restart_scheme="exact",
+                          rtr_gradnorm_tol=1e-3)
+    out = {}
+    before = (edge_matvec.LAUNCHES, segsum.LAUNCHES)
+    for dev in ("cpu", cuda):
+        p64, ranges = spmd.build_spmd_problem(meas, n, 4, 5, device=dev)
+        p32, _ = spmd.build_spmd_problem(meas, n, 4, 5, dtype=torch.float32,
+                                         device=dev)
+        Xs = spmd.initial_state(p64, X0, ranges, device=dev).X.cpu().numpy()
+        run = delta.make_delta_run_fn(p32, cfg, reanchor_every=3, device=dev)
+        ref = delta.build_delta_ref(p32, Xs, device=dev)
+        state, ref, m, rounds = run(ref, delta.initial_delta_state(ref), 6,
+                                    0.0)
+        out[str(dev)] = (m, rounds, (state.ACC + state.D).cpu())
+    torch.cuda.synchronize()
+    assert (edge_matvec.LAUNCHES, segsum.LAUNCHES) == before
+    (mc, rc, Pc), (mg, rg, Pg) = out["cpu"], out["cuda"]
+    assert rc == rg == 6
+    for k in ("cost", "gradnorm"):
+        np.testing.assert_allclose(float(getattr(mg, k)),
+                                   float(getattr(mc, k)), rtol=1e-4)
+    torch.testing.assert_close(Pg, Pc, rtol=0,
+                               atol=1e-4 * float(Pc.abs().max()))
+
+
+def test_certificate_on_card_matches_cpu(cuda):
+    """certificate_matvec and kkt_multipliers (float64) on the card against
+    the CPU to 1e-12 relative, and min_eig_certificate's verdict and
+    lambda_min from the same start within 1e-9."""
+    from dpgo_tpu_torch.solvers import certify
+
+    edges, n, _ = datasets.synthesize_grid3d(125, seed=0)
+    V = torch.as_tensor(np.random.default_rng(0).standard_normal((n, 3, 4)))
+    out = {}
+    for dev in ("cpu", cuda):
+        problem = quadratic.from_private_measurements(edges, n=n, d=3,
+                                                      device=dev)
+        qd = quadratic.build_quadratic_data(
+            problem, torch.zeros((1, 5, 4), dtype=torch.float64, device=dev),
+            r=5, precond="auto")
+        T = chordal.chordal_initialization_arrays(edges, n=n, device=dev)
+        X0 = torch.einsum("rd,nde->nre",
+                          lifted.fixed_stiefel_variable(3, 5, device=dev), T)
+        X, _ = rtr.rtr_solve(qd, X0, 1e-8, 100.0, max_iterations=100,
+                             max_inner=200)
+        Lam = certify.kkt_multipliers(qd, X)
+        SV = certify.certificate_matvec(qd, Lam, V.to(dev))
+        cert = certify.min_eig_certificate(qd, X, k=64)
+        out[str(dev)] = (Lam.cpu(), SV.cpu(), cert)
+    (Lc, Sc, cc), (Lg, Sg, cg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(Lg, Lc, rtol=0,
+                               atol=1e-12 * float(Lc.abs().max()))
+    torch.testing.assert_close(Sg, Sc, rtol=0,
+                               atol=1e-12 * float(Sc.abs().max()))
+    assert cg.certified == cc.certified is True
+    assert abs(cg.lambda_min - cc.lambda_min) <= 1e-9
