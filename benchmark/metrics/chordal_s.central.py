@@ -1,0 +1,8 @@
+"""The chordal initialization of a centralized solve (solvers/chordal.py,
+its two PCG stages) and the lift, seconds per solve."""
+
+UNIT = "s"
+
+
+def read(trace):
+    return trace.span_mean("central", "chordal")

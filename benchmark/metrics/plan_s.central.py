@@ -1,0 +1,10 @@
+"""Host planning of a centralized solve, seconds per solve:
+quadratic.from_private_measurements, build_quadratic_data and
+attach_csr_plans (the benchmark's spans, ended by a synchronize in a
+traced run)."""
+
+UNIT = "s"
+
+
+def read(trace):
+    return trace.span_mean("central", "plan")
