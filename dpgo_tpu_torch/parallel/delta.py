@@ -184,7 +184,9 @@ def delta_polar(Y_ref: torch.Tensor, M_ref: torch.Tensor, W: torch.Tensor,
     Shapes: Y_ref/W (..., r, d), M_ref (..., d, d). The leading
     `batch_dims` axes are independent problems, each stopping at its own
     count and frozen after (the JAX package's vmap over agents); the
-    check reads one flag per loop on the host ("sync.delta.polar")."""
+    check reads one flag per loop on the host ("sync.delta.polar"). Each
+    call counts one "delta.polar_calls" and each trip past the check its
+    `unroll` steps in "delta.polar_steps", on the host, with no read."""
     d = W.shape[-1]
     K0 = _delta_K(Y_ref, M_ref, W)
     s2 = 1.0 + torch.sqrt((K0 * K0).sum(dim=(-2, -1), keepdim=True))
@@ -196,6 +198,7 @@ def delta_polar(Y_ref: torch.Tensor, M_ref: torch.Tensor, W: torch.Tensor,
     unroll = 3
     batch = W.shape[:batch_dims]
     it = torch.zeros(batch, dtype=torch.int64, device=W.device)
+    trace.COUNTS["delta.polar_calls"] += 1
 
     def bc(mask, x):
         return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
@@ -205,6 +208,7 @@ def delta_polar(Y_ref: torch.Tensor, M_ref: torch.Tensor, W: torch.Tensor,
         active = (it < iters) & (defect > tol_sq)
         if not trace.read("delta.polar", active.any()):
             break
+        trace.COUNTS["delta.polar_steps"] += unroll
         E_n, K_n = E, K
         for _ in range(unroll):
             E_n = E_n - 0.5 * ((Y_ref + E_n) @ K_n)

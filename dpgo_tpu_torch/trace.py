@@ -47,6 +47,10 @@ the work it measures.
   delta.folds           on-device anchor folds (_fold_anchor)
   delta.calls           run_delta_certified loops inside a certified solve
   delta.solves          certified solves (delta.solve_certified)
+  delta.polar_calls     delta_polar calls (the d = 3 Newton-Schulz polar;
+                        the d = 2 closed form counts none)
+  delta.polar_steps     the Newton-Schulz steps its loop runs, 3 a trip
+                        past the "sync.delta.polar" check
 
 Spans (off by default): span(name) marks a layer boundary. Off, it returns
 one shared no-op context manager: no clock read, no allocation, no

@@ -187,6 +187,43 @@ def test_delta_polar_freezes_each_agent():
     assert alone[0] < alone[1] == checks
 
 
+def polar_counts():
+    return {k: COUNTS[k] for k in ("delta.polar_calls", "delta.polar_steps",
+                                   "sync.delta.polar")}
+
+
+@pytest.mark.parametrize("agents", ["batch", "tiny", "large"])
+def test_delta_polar_counts_its_calls_and_steps(agents):
+    """On the freeze test's agents (both, or the tiny- or the large-delta
+    one alone): one "delta.polar_calls" a call and 3 "delta.polar_steps" a
+    trip of the loop, which is one check fewer than the checks read; the
+    reads are those the loop read before it counted its steps (the
+    batch's are its slowest agent's)."""
+    rng = np.random.default_rng(7)
+    Ya, Ma, Wa = polar_inputs(rng, (6,), 5, 3, 1e-6)
+    Yb, Mb, Wb = polar_inputs(rng, (6,), 5, 3, 1.0)
+    Y, M, W = (np.stack(p) for p in ((Ya, Yb), (Ma, Mb), (Wa, Wb)))
+    args = {"batch": (Y, M, W), "tiny": (Ya, Ma, Wa),
+            "large": (Yb, Mb, Wb)}[agents]
+    before = polar_counts()
+    tdm.delta_polar(*map(torch.as_tensor, args),
+                    batch_dims=1 if agents == "batch" else 0)
+    after = polar_counts()
+    calls, steps, reads = (after[k] - before[k] for k in before)
+    trips = reads - 1
+    assert calls == 1 and steps == 3 * trips
+    assert reads == {"batch": 4, "tiny": 2, "large": 4}[agents]
+
+
+def test_delta_polar2_counts_no_polar_steps():
+    """The d = 2 closed form: neither polar counter moves, nor any read."""
+    rng = np.random.default_rng(52)
+    Y_ref, M_ref, W = polar_inputs(rng, (20,), 5, 2, 1.0)
+    before = polar_counts()
+    tdm.delta_polar2(*map(torch.as_tensor, (Y_ref, M_ref, W)))
+    assert polar_counts() == before
+
+
 def carry_pieces(name, use_lanes, seed=0, scale=1e-3):
     """Both packages' CarryRef, lane arrays and omegas at the case's anchor,
     and random deltas D (A, n, r, dh) of `scale`."""
