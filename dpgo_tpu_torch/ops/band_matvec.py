@@ -46,7 +46,10 @@ def band_matvec_reference(V: torch.Tensor, diag: torch.Tensor, band_E,
         # Band lanes, fused across all offsets: lane l holds the E blocks of
         # edges (i, i + delta_l) at row i (zeros elsewhere).
         L = len(offsets)
-        offs = torch.tensor(offsets, dtype=torch.int64, device=V.device)
+        # filled on the device, not copied from the host: a CUDA graph
+        # may hold this product (the certificate's refinement step)
+        offs = torch.stack([torch.full((), o, dtype=torch.int64,
+                                       device=V.device) for o in offsets])
         iota = torch.arange(n, device=V.device)
         # row within its block, and the block's first row
         blk = block_rows or n

@@ -116,7 +116,8 @@ def _eager(step: Callable) -> Callable:
 _capture_streams: dict = {}
 
 
-def _graphed(step: Callable, device: torch.device) -> Callable:
+def _graphed(step: Callable, device: torch.device,
+             replays: str = "chordal.graph_replays") -> Callable:
     """run(n) on CUDA: n steps as replays of one captured step.
 
     The first call runs one step eagerly on the capture stream (a real
@@ -127,7 +128,7 @@ def _graphed(step: Callable, device: torch.device) -> Callable:
     cache at every capture, two a chordal initialization. The capture is
     thread_local, so the agents' threads may use the card meanwhile. The
     launches made while capturing are taken back out of trace.COUNTS, and
-    each replay counts those it contains; chordal.graph_replays counts the
+    each replay counts those it contains; the counter `replays` counts the
     replays."""
     graph = None
     launched: collections.Counter = collections.Counter()
@@ -154,7 +155,7 @@ def _graphed(step: Callable, device: torch.device) -> Callable:
             n -= 1
         for _ in range(n):
             graph.replay()
-        trace.COUNTS["chordal.graph_replays"] += n
+        trace.COUNTS[replays] += n
         for name, count in launched.items():
             trace.COUNTS[name] += count * n
     return run

@@ -23,7 +23,9 @@ two snapshots around the work it measures.
   sync.delta.shrink     the delta RTR step's acceptance checks
   sync.delta.round      the delta run loop's gradient-norm test
   sync.delta.check      run_delta_certified's and run_delta_gnc's checks
-  sync.certify.refine   the certificate's LOBPCG refinement, per iteration
+  sync.certify.refine   the certificate's LOBPCG refinement's stop test,
+                        one per block of certify.REFINE_BLOCK iterations,
+                        and its last Rayleigh quotient and residual
   sync.certify          the certificate's other reads and copies
   sync.agent.<cause>    the agent protocol's reads (messages, solve_stats,
                         relative_change, state)
@@ -56,6 +58,16 @@ two snapshots around the work it measures.
                         the d = 2 closed form counts none)
   delta.polar_steps     the Newton-Schulz steps its loop runs, 3 a trip
                         past the "sync.delta.polar" check
+  certify.solves        certified centralized solves
+                        (certify.solve_certified)
+  certify.calls         min_eig_certificate calls
+  certify.lanczos_steps their Lanczos steps (k, or the deflated dimension
+                        where that is smaller)
+  certify.refine_iters  their LOBPCG refinement iterations (_refine_min),
+                        the frozen ones after the stop test left out
+  certify.graph_replays replays of a refinement's captured iteration (on
+                        CUDA)
+  certify.escapes       staircase escapes to the next rank (lift_and_escape)
 
 Spans (off by default): span(name) marks a layer boundary. Off, it returns
 one shared no-op context manager: no clock read, no allocation, no
@@ -81,6 +93,25 @@ Spans of the delta engine (parallel/delta.py):
   delta.assemble        the answer's transfers, its sum on the host and
                         the projection onto the manifold
   delta.host_certify    the host's float64 cost and gradient norm
+
+Spans of the certified centralized solve (solvers/certify.py), its stages
+opened through the span factory solve_certified is given (span by
+default), the certificate's parts always through span:
+
+  certify.solve         the whole certified solve (solve_certified)
+    certify.plan        the measurement problem, once, and both stages'
+                        quadratic data (with CSR plans; with the banded
+                        factor)
+    certify.chordal     the chordal initialization and the lift to r0
+    certify.rtr         the mixed-precision trust-region solve of a rank
+    certify.polish      the float64 polish of a rank (certify.polish)
+    certify.certificate min_eig_certificate at a rank, holding
+      certify.lanczos   the deflation basis, the Lanczos run and its Ritz
+                        pair, ending on its residual's read
+      certify.refine    the LOBPCG refinement, ending on its last read
+      certify.bound     the deflation block, the coupling and the
+                        stationarity, ending on its read
+    certify.escape      lift_and_escape to the next rank
 """
 
 from __future__ import annotations

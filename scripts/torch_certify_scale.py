@@ -12,12 +12,15 @@ proves first-order optimality: a float64 Riemannian gradient norm below
 lambda_min(S(X)) >= -eta proves the lifted iterate a global minimizer of
 the rank-r relaxation. It reads the npz (X global (n, r, d+1), or the
 legacy stacked (N, n_max, r, d+1) layout), re-synthesizes the world from
-its seed, replays the relabeling, polishes the iterate in float64
-(rtr_solve to gradient norm 1e-6 from radius 1, at most 100 iterations of
-at most 500 tCG iterations, block-Jacobi: the certificate's coupling term
-scales with the gradient norm; DPGO_CERT_POLISH=0 skips it) and runs
-certify_solution with k Lanczos steps (default 64), eta (1e-6) and
-DPGO_CERT_REFINE refinement iterations (400). Runs on the CUDA card unless
+its seed, replays the relabeling, and runs the package's polish and
+certificate stages (those of certify.solve_certified) on one assembled
+problem: certify.polish in float64 (rtr_solve to gradient norm 1e-6 from
+radius 1, at most 100 iterations of at most 500 tCG iterations,
+block-Jacobi: the certificate's coupling term scales with the gradient
+norm; DPGO_CERT_POLISH=0 skips it), then min_eig_certificate over the
+exact banded factor, as certify_solution builds it, with k Lanczos steps
+(default 64), eta (1e-6) and DPGO_CERT_REFINE refinement iterations
+(400). Runs on the CUDA card unless
 --device names another device (without a card it exits); prints the
 `polish:` and `CERTIFICATE ...` lines with the device's name and power
 limit.
@@ -28,19 +31,18 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 from dpgo_tpu_torch import devices, quadratic  # noqa: E402
-from dpgo_tpu_torch.solvers import certify, rtr  # noqa: E402
+from dpgo_tpu_torch.solvers import certify  # noqa: E402
 from scripts.torch_scale_bench import (  # noqa: E402
     Iterate, card_line, load_iterate, relabel, sync, synthesize)
 
-POLISH = dict(gradnorm_tol=1e-6, initial_radius=1.0, max_iterations=100,
-              max_inner=500)
+# the package's polish settings (certify.POLISH, solve_certified's stage (b))
+POLISH = certify.POLISH
 
 
 def replay(it: Iterate):
@@ -49,16 +51,11 @@ def replay(it: Iterate):
     return relabel(edges, it.order), n, d
 
 
-@devices.highest
-def polish(edges, n: int, d: int, X: np.ndarray, device):
-    """certify_scale.py's float64 polish: (X, stats dict)."""
-    r = X.shape[1]
-    problem = quadratic.from_private_measurements(edges, n=n, d=d,
-                                                  device=device)
-    qd = quadratic.build_quadratic_data(
-        problem, torch.zeros((1, r, d + 1), dtype=torch.float64,
-                             device=device), r=r)
-    Xp, st = rtr.rtr_solve(qd, torch.as_tensor(X, device=device), **POLISH)
+def polish(problem, X: torch.Tensor):
+    """certify_scale.py's float64 polish, the package's stage
+    (certify.polish over block-Jacobi data): (X, stats dict)."""
+    qd = certify.quadratic_data(problem, X.shape[1])
+    Xp, st = certify.polish(qd, X, **POLISH)
     return Xp, dict(gradnorm_init=float(st.gnorm_init),
                     gradnorm=float(st.gnorm_opt), f=float(st.f_opt),
                     iterations=int(st.iterations),
@@ -75,16 +72,21 @@ def certify_scale(it: Iterate, k: int = 64, eta: float = 1e-6,
     t = {}
     t0 = time.perf_counter()
     edges, n, d = replay(it)
+    problem = quadratic.from_private_measurements(edges, n=n, d=d,
+                                                  device=device)
     t["replay_s"] = time.perf_counter() - t0
-    X, pol = it.X, None
+    X, pol = torch.as_tensor(it.X, dtype=torch.float64, device=device), None
     t0 = time.perf_counter()
     if do_polish:
-        X, pol = polish(edges, n, d, it.X, device)
+        X, pol = polish(problem, X)
     sync(device)
     t["polish_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cert = certify.certify_solution(edges, X, k=k, eta=eta,
-                                    refine_iters=refine, device=device)
+    # the package's certificate stage: min_eig_certificate over the exact
+    # banded factor, as certify_solution builds it
+    cert = certify.min_eig_certificate(
+        certify.quadratic_data(problem, X.shape[1], "auto"), X, k=k, eta=eta,
+        refine_iters=refine)
     sync(device)
     t["certificate_s"] = time.perf_counter() - t0
     return dict(world=it.world, n=n, r=int(X.shape[1]), k=k, eta=eta,

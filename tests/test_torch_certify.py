@@ -198,3 +198,156 @@ def test_staircase_escapes_like_jax():
         [h["certified"] for h in rj.history]
     assert abs(rt.cost - rj.cost) <= 1e-8 * abs(rj.cost)
     assert rt.cost < rt.history[0]["cost"] - 1.0
+
+
+# ---------------------------------------------------------------------------
+# solve_certified: the staircase on edge arrays, mixed precision where safe
+# ---------------------------------------------------------------------------
+
+from benchmark.harness import worlds  # noqa: E402
+from benchmark.reference import certificate as ref_cert  # noqa: E402
+from benchmark.reference import objective as ref_objective  # noqa: E402
+from dpgo_tpu_torch import trace  # noqa: E402
+from dpgo_tpu_torch.measurements import EdgeArrays as TEdges  # noqa: E402
+from dpgo_tpu_torch.solvers.pgo import (  # noqa: E402
+    odometry_initialization as t_odometry)
+
+
+@functools.lru_cache(maxsize=None)
+def grid216():
+    """The benchmark's grid3d world at 216 poses (world seed 1), its edges
+    and the port's certified solve of it with the default stages, from a
+    fresh count: (benchmark edges, measurements, result, counts)."""
+    e = worlds.synthesize_grid3d(216, seed=1)
+    arrays = TEdges(**e._asdict())
+    before = trace.COUNTS.copy()
+    res = tc.solve_certified(arrays, 216, 3, csr_min_edges=0, device="cpu")
+    counts = trace.COUNTS.copy()
+    counts.subtract(before)
+    return e, arrays.to_measurements(), res, counts
+
+
+def deflated_min(S, X):
+    """The smallest eigenvalue of S on the complement of X's rows and the
+    gauge vector, dense."""
+    n, r, dh = X.shape
+    gauge = np.zeros((1, n, dh))
+    gauge[..., -1] = 1.0
+    M = np.concatenate([np.transpose(X, (1, 0, 2)), gauge]).reshape(r + 1, -1)
+    _u, sv, Vt = np.linalg.svd(M)
+    q = int((sv > 1e-6 * sv[0]).sum())
+    Z = Vt[q:].T  # orthonormal complement
+    return float(np.linalg.eigvalsh(Z.T @ S @ Z)[0])
+
+
+def test_solve_certified_matches_dense_oracle_and_reference():
+    """The default stages on a 216-pose grid: certified at r = 5 without an
+    escape, the polish below 1e-6 by the benchmark's plain objective; the
+    verdict is the dense S's, the lower bound below and the estimate within
+    1e-8 of the dense lambda_min; the deflated Ritz value within its
+    residual of the dense deflated lambda_min, which the reference's Lanczos
+    bounds from above; and the plain reference of the certificate
+    agrees."""
+    e, meas, res, _ = grid216()
+    X = res.X.numpy()
+    c = res.certificate
+    assert res.r == 5 and res.escapes == 0 and c.certified
+    assert ref_objective.readings(e, res.X)["gradnorm"] <= 1e-6
+    S = dense_S(meas, 216, X)
+    lam = float(np.linalg.eigvalsh(S)[0])
+    assert c.certified == (lam >= -1e-6)
+    assert c.lambda_min_lower <= lam + 1e-10
+    assert abs(c.lambda_min - lam) <= 1e-8
+    lam_defl = deflated_min(S, X)
+    assert abs(c.ritz - lam_defl) <= max(c.eig_residual, 1e-10)
+    rd = ref_cert.readings(e, res.X, c.eigvec, c.ritz, c.eig_residual,
+                           c.stationarity)
+    assert rd["rho"] >= lam_defl - 1e-9
+    assert abs(rd["stationarity"] - c.stationarity) <= 1e-12
+    assert ref_cert.agrees(rd, 1e-6)
+
+
+def test_solve_certified_escapes_like_the_staircase():
+    """The conflicted ring from its odometry start at r = 2, through the
+    default mixed stages: the r = 2 point is rejected, each escape is
+    counted, and the final rank and verdict are solve_pgo_staircase's."""
+    meas = conflicted_ring(TMeas)
+    T0 = t_odometry(meas[:-1], device="cpu")
+    st = tc.solve_pgo_staircase(meas, r0=2, r_max=8, gradnorm_tol=1e-9,
+                                eta=1e-6, T0=T0, device="cpu")
+    before = trace.COUNTS["certify.escapes"]
+    res = tc.solve_certified(TEdges.from_measurements(meas), 12, 2, X0=T0,
+                             r_max=8, device="cpu")
+    first = res.stages[0]["certificate"]
+    assert not first.certified and first.lambda_min < -1e-2
+    assert trace.COUNTS["certify.escapes"] - before == res.escapes == \
+        res.r - 2 > 0
+    assert [s["r"] for s in res.stages] == list(range(2, res.r + 1))
+    assert (res.r, res.certificate.certified) == (st.r, st.certified)
+
+
+@pytest.mark.parametrize("spans", [False, True])
+def test_solve_certified_counts_with_spans_on_and_off(spans):
+    """The same counts with spans on and off (the spans read nothing), each
+    counter the result's own figures; with spans on, the stages nest under
+    certify.solve and the certificate's parts under certify.certificate."""
+    _, _, ref_res, ref_counts = grid216()
+    e = worlds.synthesize_grid3d(216, seed=1)
+    trace.drain()
+    if spans:
+        trace.enable()
+    try:
+        before = trace.COUNTS.copy()
+        res = tc.solve_certified(TEdges(**e._asdict()), 216, 3,
+                                 csr_min_edges=0, device="cpu")
+        counts = trace.COUNTS.copy()
+        counts.subtract(before)
+    finally:
+        trace.disable()
+    recs = trace.drain()
+    c = res.certificate
+    assert +counts == +ref_counts
+    assert counts["certify.solves"] == 1 and counts["certify.calls"] == 1
+    assert counts["certify.lanczos_steps"] == c.lanczos_steps == 64
+    assert counts["certify.refine_iters"] == c.refine_iters > 0
+    assert counts["certify.escapes"] == res.escapes == 0
+    # one read a block of REFINE_BLOCK iterations (the iterations run and
+    # the stop test that ends them), one for the Rayleigh quotient returned
+    steps = c.refine_iters + (c.refine_iters < tc.CERTIFICATE["refine_iters"])
+    assert counts["sync.certify.refine"] == -(-steps // tc.REFINE_BLOCK) + 1
+    if not spans:
+        assert recs == []
+        return
+    names = [r[0] for r in recs]
+    assert names[0] == "certify.solve"
+    parent = {name: names[p] if p >= 0 else None for name, p, _, _ in recs}
+    for stage in ("plan", "chordal", "rtr", "polish", "certificate"):
+        assert parent["certify." + stage] == "certify.solve"
+    for part in ("lanczos", "refine", "bound"):
+        assert parent["certify." + part] == "certify.certificate"
+
+
+@pytest.mark.parametrize("spectrum", [
+    (0.62, 3.0, 9.5), (0.62, 1e3, 1e4), (-2.0, -1.0, 5.0),
+    (1.0, 1.0 + 1e-6, 4.0), (0.5, 7.0, 7.0 + 1e-9), (0.62, 0.62, 0.62)])
+def test_min_eigvec3_matches_eigh(spectrum):
+    """The refinement's closed-form 3 x 3 Rayleigh-Ritz step against
+    torch.linalg.eigh on rotated diagonal matrices, well separated, widely
+    spread, negative, with a near-double smallest or largest eigenvalue and
+    a triple one: a unit vector whose Rayleigh quotient is the smallest
+    eigenvalue to 1e-12 of the spread, and the eigenvector itself to 1e-8
+    where the smallest eigenvalue is simple."""
+    lam = torch.tensor(spectrum, dtype=torch.float64)
+    rng = np.random.default_rng(7)
+    for _ in range(20):
+        Q = torch.as_tensor(np.linalg.qr(rng.standard_normal((3, 3)))[0])
+        T = (Q * lam) @ Q.T
+        T = 0.5 * (T + T.T)
+        v = tc._min_eigvec3(T)
+        scale = float(lam.abs().max())
+        assert abs(float(v @ v) - 1.0) <= 1e-14
+        assert abs(float(v @ T @ v) - float(lam[0])) <= 1e-12 * scale
+        if lam[1] - lam[0] > 1e-3:
+            e = torch.linalg.eigh(T)[1][:, 0]
+            assert min(float((v - e).abs().max()),
+                       float((v + e).abs().max())) <= 1e-8

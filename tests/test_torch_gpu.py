@@ -664,3 +664,55 @@ def test_chordal_pcg_graph_matches_eager_in_float64(cuda, monkeypatch):
         torch.use_deterministic_algorithms(False)
     _check_stages(stages, 0)
     assert T.dtype == torch.float64 and torch.isfinite(T).all()
+
+
+def test_certificate_refinement_graph_matches_eager(cuda, monkeypatch):
+    """certify._refine_min on the card where the refinement runs (the
+    chordal init of a 1,000-pose grid, precond 'auto', float64,
+    deterministic kernels): every block replays the captured iteration
+    with no host read inside (sync debug mode "error"), and gives the
+    eager masked loop's bits, iteration count and reads."""
+    from dpgo_tpu_torch.solvers import certify
+
+    edges, n, _ = datasets.synthesize_grid3d(1000, seed=0)
+    real = chordal._graphed
+
+    def strict(step, device, replays):
+        run_steps = real(step, device, replays)
+
+        def run(k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run_steps(k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return run
+
+    T = chordal.chordal_initialization_arrays(edges, n=n, device=cuda)
+    X = torch.einsum("rd,nde->nre",
+                     lifted.fixed_stiefel_variable(3, 5, device=cuda), T)
+    out = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (strict, lambda step, device, replays:
+                        chordal._eager(step)):
+            with monkeypatch.context() as m:
+                m.setattr(chordal, "_graphed", graphed)
+                before = trace.COUNTS.copy()
+                c = certify.certify_solution(edges, X, refine_iters=100,
+                                             device=cuda)
+                out.append((c, trace.COUNTS - before))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (cg, graph), (ce, eager) = out
+    assert 0 < cg.refine_iters == ce.refine_iters
+    blocks = -(-(cg.refine_iters + (cg.refine_iters < 100))
+               // certify.REFINE_BLOCK)
+    assert graph["certify.graph_replays"] == blocks * certify.REFINE_BLOCK - 1
+    assert eager["certify.graph_replays"] == 0
+    assert graph["sync.certify.refine"] == eager["sync.certify.refine"] \
+        == blocks + 1
+    for f in ("lambda_min", "lambda_min_lower", "eig_residual", "ritz",
+              "stationarity"):
+        assert getattr(cg, f) == getattr(ce, f), f
+    assert np.array_equal(cg.eigvec, ce.eigvec)
